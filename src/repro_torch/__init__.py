@@ -1,0 +1,16 @@
+"""PyTorch and CUDA port of the EEI system, for one NVIDIA H100.
+
+The JAX package ``repro`` is the reference and stays beside it; this
+package imports ``torch`` and numpy, never ``jax`` or ``repro``.  Its
+layout mirrors ``repro``'s: ``linalg`` and ``core`` hold plain PyTorch,
+``kernels`` the hand-written CUDA kernels beside their plain versions, and
+``engine`` the ``SolverEngine``.
+"""
+
+from repro_torch.engine import (  # noqa: F401
+    SolveResult,
+    SolverEngine,
+    SolverPlan,
+    TopkResult,
+    plan_for,
+)

@@ -1,0 +1,175 @@
+"""Default stage libraries (reference, torch, cuda) and compositions.
+
+    reference   straightforward PyTorch: unfused log-space sums and the
+                plain Sturm bisection.  The oracle the others are held to.
+    torch       the fused-reduction twin of ``repro``'s ``jnp`` backend: the
+                numerator and denominator sums written as contractions with
+                a ones-vector (``identity.*_dot``).
+    cuda        the hand-written kernels: Sturm bisection (full spectrum,
+                k-window and all stacked minor bands, one launch each) and
+                the prod-diff numerator table.  On CPU tensors the kernel
+                wrappers run their plain versions.
+
+The Householder reduce, the minor-determinant recurrence and the sign
+recurrence are plain PyTorch on every backend, as ``repro`` leaves them to
+``jnp``.
+
+Compositions registered here:
+
+    eigh                  ``torch.linalg.eigh`` (the oracle / small-n path)
+    eei_tridiag           Householder -> Sturm -> minor Sturm -> full EEI
+                          table -> recurrence signs + back-transform
+    eei_tridiag_windowed  Householder -> k-window Sturm -> minor-determinant
+                          components -> recurrence signs + back-transform
+
+``eei_dense``, ``eei_krylov`` and ``eei_krylov_si`` wait for ROADMAP queue
+1, item 8.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import identity, minors
+from repro_torch.core.directions import tridiagonal_signs
+from repro_torch.engine.plan import SolverPlan
+from repro_torch.engine.registry import (
+    Composition,
+    StageLibrary,
+    StageSig,
+    register_backend,
+    register_composition,
+)
+from repro_torch.linalg import householder, sturm
+
+
+def _dense_eigenvalues(a: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.eigvalsh(a)
+
+
+def _common_stages() -> dict:
+    """Stages every backend shares: the reduce, the minor determinants, the
+    sign recurrence and the dense eigenvalues of the eigh chain."""
+    return {
+        "tridiagonalize": householder.tridiagonalize,
+        "dense_eigenvalues": _dense_eigenvalues,
+        "minor_det_components": identity.tridiag_windowed_magnitudes,
+        "tridiag_signs": tridiagonal_signs,
+    }
+
+
+def _make_plain(name: str, reduce: str, plan: SolverPlan) -> StageLibrary:
+    iters = plan.bisect_iters
+
+    def tridiag_eigenvalues(d, e):
+        return sturm.bisect_eigenvalues(d, e, n_iter=iters)
+
+    def tridiag_eigenvalues_windowed(d, e, k, largest):
+        return sturm.bisect_eigenvalues_windowed(
+            d, e, k, largest=largest, n_iter=iters)
+
+    def tridiag_minor_spectra(d, e):
+        dm, em = minors.all_tridiagonal_minor_bands(d, e)
+        return sturm.bisect_eigenvalues(dm, em, n_iter=iters)
+
+    def magnitudes(lam, mu):
+        return identity.magnitudes_from_spectra(lam, mu, reduce=reduce)
+
+    return StageLibrary(name, {
+        **_common_stages(),
+        "tridiag_eigenvalues": tridiag_eigenvalues,
+        "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
+        "tridiag_minor_spectra": tridiag_minor_spectra,
+        "magnitudes": magnitudes,
+    })
+
+
+def make_reference_backend(plan: SolverPlan) -> StageLibrary:
+    return _make_plain("reference", "sum", plan)
+
+
+def make_torch_backend(plan: SolverPlan) -> StageLibrary:
+    return _make_plain("torch", "dot", plan)
+
+
+def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
+    from repro_torch.kernels.prod_diff import ops as pd_ops
+    from repro_torch.kernels.sturm import ops as sturm_ops
+
+    iters = plan.bisect_iters
+
+    def tridiag_eigenvalues(d, e):
+        return sturm_ops.sturm_eigenvalues(d, e, n_iter=iters)
+
+    def tridiag_eigenvalues_windowed(d, e, k, largest):
+        return sturm_ops.sturm_eigenvalues(
+            d, e, n_iter=iters, window=(int(k), bool(largest)))
+
+    def tridiag_minor_spectra(d, e):
+        dm, em = minors.all_tridiagonal_minor_bands(d, e)
+        return sturm_ops.sturm_minor_spectra(dm, em, n_iter=iters)
+
+    return StageLibrary("cuda", {
+        **_common_stages(),
+        "tridiag_eigenvalues": tridiag_eigenvalues,
+        "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
+        "tridiag_minor_spectra": tridiag_minor_spectra,
+        "magnitudes": pd_ops.eei_magnitudes_batched,
+    })
+
+
+def register_default_backends() -> None:
+    register_backend("reference", make_reference_backend)
+    register_backend("torch", make_torch_backend)
+    register_backend("cuda", make_cuda_backend)
+
+
+# Shared stage signatures.
+_REDUCE = StageSig("reduce", "householder", ("a",), ("d", "e", "q"))
+_REDUCE_NOQ = StageSig("reduce", "householder", ("a",), ("d", "e"))
+_SPEC_DENSE = StageSig("spectrum", "dense_eigenvalues", ("a",), ("lam",))
+_SPEC_TRI = StageSig("spectrum", "tridiag_full", ("d", "e"), ("lam",))
+_SPEC_TRI_WIN = StageSig(
+    "spectrum", "tridiag_windowed", ("d", "e"), ("lam_sel",))
+_MINORS_TRI = StageSig("minor_spectra", "tridiag_minors", ("d", "e"), ("mu",))
+_COMP_FULL = StageSig("components", "eei_full", ("lam", "mu"), ("mags",))
+_COMP_SELECT = StageSig(
+    "components", "eei_select", ("lam", "mu", "idx"), ("lam_sel", "mag_sel"))
+_COMP_DET = StageSig(
+    "components", "minor_det", ("d", "e", "lam_sel"), ("mag_sel",))
+_REC_TRI = StageSig(
+    "recover", "tridiag_signs", ("d", "e", "q", "lam_sel", "mag_sel"),
+    ("vecs",))
+_REC_TRI_SOLVE = StageSig(
+    "recover", "tridiag_solve", ("d", "e", "q", "lam", "mags"), ("mags",))
+
+
+def register_default_compositions() -> None:
+    register_composition(Composition(
+        name="eigh", method="eigh", windowed=False,
+        topk=(
+            StageSig("spectrum", "eigh", ("a",), ("lam", "v")),
+            StageSig("recover", "eigh_topk", ("lam", "v", "idx"),
+                     ("lam_sel", "vecs")),
+        ),
+        solve=(
+            StageSig("spectrum", "eigh", ("a",), ("lam", "v")),
+            StageSig("recover", "eigh_solve", ("lam", "v"), ("mags",)),
+        ),
+        eigenvalues=(_SPEC_DENSE,),
+    ))
+    register_composition(Composition(
+        name="eei_tridiag", method="eei_tridiag", windowed=False,
+        topk=(_REDUCE, _SPEC_TRI, _MINORS_TRI, _COMP_SELECT, _REC_TRI),
+        solve=(_REDUCE, _SPEC_TRI, _MINORS_TRI, _COMP_FULL, _REC_TRI_SOLVE),
+        eigenvalues=(_REDUCE_NOQ, _SPEC_TRI),
+    ))
+    register_composition(Composition(
+        name="eei_tridiag_windowed", method="eei_tridiag", windowed=True,
+        topk=(_REDUCE, _SPEC_TRI_WIN, _COMP_DET, _REC_TRI),
+        eigenvalues=(_REDUCE_NOQ, _SPEC_TRI_WIN),
+    ))
+
+
+register_default_backends()
+register_default_compositions()

@@ -1,0 +1,349 @@
+"""SolverEngine: plan-driven, batched execution of the EEI stage graph.
+
+``SolverEngine(plan, device).solve(a)`` / ``.topk(a, k)`` /
+``.eigenvalues(a)`` take one symmetric matrix ``(n, n)`` or a stack
+``(b, n, n)`` and run the plan's composition on the plan's backend.  The
+twin of ``repro.engine.engine``: a program resolves ``plan -> composition
+-> stage chain`` (``registry``), binds every stage to its builder (the
+``_STAGE_BUILDERS`` table) and threads a state dict through the chain.
+Built programs are cached per ``(plan, kind, k, largest)``; PyTorch runs
+eagerly, so there is nothing to compile.
+
+The engine runs on the card unless the caller asks for another device: with
+no ``device`` it takes ``cuda`` and raises where there is none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.engine import backends as _backends  # noqa: F401 (registers)
+from repro_torch.engine import registry
+from repro_torch.engine.plan import SolverPlan
+
+#: Methods the port does not run yet, with the ROADMAP item that brings them.
+NOT_PORTED = {
+    "eei_dense": "ROADMAP queue 1, item 8",
+    "eei_krylov": "ROADMAP queue 1, item 8",
+    "eei_krylov_si": "ROADMAP queue 1, item 8",
+}
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+class SolveResult(NamedTuple):
+    """``eigenvalues (..., n)`` ascending and the magnitude table
+    ``magnitudes (..., n, n)`` (rows are eigenvectors, dense basis)."""
+
+    eigenvalues: torch.Tensor
+    magnitudes: torch.Tensor
+
+
+class TopkResult(NamedTuple):
+    """``eigenvalues (..., k)`` ascending and signed, unit-norm eigenvectors
+    ``vectors (..., k, n)`` (rows are eigenvectors, dense basis)."""
+
+    eigenvalues: torch.Tensor
+    vectors: torch.Tensor
+
+
+class ProgramSpec(NamedTuple):
+    """Static description of one program: kind and window."""
+
+    kind: str  # solve | topk | eigenvalues
+    k: int = 0  # 0 -> no window (full spectrum)
+    largest: bool = True
+
+
+def _renormalize(vecs: torch.Tensor) -> torch.Tensor:
+    nrm = torch.linalg.vector_norm(vecs, dim=-1, keepdim=True)
+    return vecs / torch.clamp(nrm, min=1e-30)
+
+
+def _back_transform(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rows ``w[.., i, :]`` of tridiagonal eigenvectors -> dense ``v = Q w``."""
+    return w @ q.transpose(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# Stage builders: (role, name) -> builder(lib, spec) -> fn(state) -> dict
+# ---------------------------------------------------------------------------
+
+
+def _b_householder(lib, spec):
+    with_q = spec.kind != "eigenvalues"
+
+    def fn(st):
+        d, e, q = lib.tridiagonalize(st["a"], with_q)
+        return {"d": d, "e": e, "q": q}
+
+    return fn
+
+
+def _b_eigh(lib, spec):
+    def fn(st):
+        lam, v = torch.linalg.eigh(st["a"])
+        return {"lam": lam, "v": v}
+
+    return fn
+
+
+def _b_eigh_topk(lib, spec):
+    def fn(st):
+        idx = st["idx"]
+        return {"lam_sel": st["lam"][..., idx],
+                "vecs": st["v"][..., :, idx].transpose(-1, -2)}
+
+    return fn
+
+
+def _b_eigh_solve(lib, spec):
+    return lambda st: {"mags": (st["v"] * st["v"]).transpose(-1, -2)}
+
+
+def _b_dense_eigenvalues(lib, spec):
+    return lambda st: {"lam": lib.dense_eigenvalues(st["a"])}
+
+
+def _b_tridiag_full(lib, spec):
+    return lambda st: {"lam": lib.tridiag_eigenvalues(st["d"], st["e"])}
+
+
+def _b_tridiag_windowed(lib, spec):
+    def fn(st):
+        # k == 0 (a full-eigenvalues program) means the whole band.
+        return {"lam_sel": lib.tridiag_eigenvalues_windowed(
+            st["d"], st["e"], spec.k or st["d"].shape[-1], spec.largest)}
+
+    return fn
+
+
+def _b_tridiag_minors(lib, spec):
+    return lambda st: {"mu": lib.tridiag_minor_spectra(st["d"], st["e"])}
+
+
+def _b_eei_full(lib, spec):
+    return lambda st: {"mags": lib.magnitudes(st["lam"], st["mu"])}
+
+
+def _b_eei_select(lib, spec):
+    def fn(st):
+        mags = lib.magnitudes(st["lam"], st["mu"])
+        idx = st["idx"]
+        return {"lam_sel": st["lam"][..., idx], "mag_sel": mags[..., idx, :]}
+
+    return fn
+
+
+def _b_minor_det(lib, spec):
+    return lambda st: {"mag_sel": lib.minor_det_components(
+        st["d"], st["e"], st["lam_sel"])}
+
+
+def _b_tridiag_signs(lib, spec):
+    def fn(st):
+        w = lib.tridiag_signs(st["d"], st["e"], st["lam_sel"], st["mag_sel"])
+        return {"vecs": _renormalize(_back_transform(w, st["q"]))}
+
+    return fn
+
+
+def _b_tridiag_solve(lib, spec):
+    def fn(st):
+        # Sign and back-transform every row so the table is in the dense
+        # basis like the other compositions'.
+        w = lib.tridiag_signs(st["d"], st["e"], st["lam"], st["mags"])
+        v = _back_transform(_renormalize(w), st["q"])
+        mags = v * v
+        return {"mags": mags / mags.sum(dim=-1, keepdim=True)}
+
+    return fn
+
+
+_STAGE_BUILDERS = {
+    ("reduce", "householder"): _b_householder,
+    ("spectrum", "eigh"): _b_eigh,
+    ("spectrum", "dense_eigenvalues"): _b_dense_eigenvalues,
+    ("spectrum", "tridiag_full"): _b_tridiag_full,
+    ("spectrum", "tridiag_windowed"): _b_tridiag_windowed,
+    ("minor_spectra", "tridiag_minors"): _b_tridiag_minors,
+    ("components", "eei_full"): _b_eei_full,
+    ("components", "eei_select"): _b_eei_select,
+    ("components", "minor_det"): _b_minor_det,
+    ("recover", "eigh_topk"): _b_eigh_topk,
+    ("recover", "eigh_solve"): _b_eigh_solve,
+    ("recover", "tridiag_signs"): _b_tridiag_signs,
+    ("recover", "tridiag_solve"): _b_tridiag_solve,
+}
+
+
+# ---------------------------------------------------------------------------
+# Graph executor
+# ---------------------------------------------------------------------------
+
+
+def _resolve_chain(plan: SolverPlan, spec: ProgramSpec):
+    """The composition and chain a program runs.
+
+    ``topk`` takes the windowed composition when the plan asks for it;
+    ``solve`` always the full one; ``eigenvalues`` with a window prefers the
+    windowed chain (index-targeted bisection).  A composition without the
+    kind's chain falls back to the method's full composition.
+    """
+    if spec.kind == "topk":
+        windowed = plan.spectrum == "windowed"
+    else:
+        windowed = spec.kind == "eigenvalues" and spec.k > 0
+    comp = registry.composition_for(plan.method, windowed)
+    chain = comp.chain(spec.kind)
+    if chain is None:
+        comp = registry.composition_for(plan.method, False)
+        chain = comp.chain(spec.kind)
+    if chain is None:
+        raise ValueError(
+            f"composition {comp.name!r} declares no {spec.kind!r} chain")
+    return comp, chain
+
+
+def _window_idx(n: int, k: int, largest: bool, device) -> torch.Tensor:
+    start = n - k if largest else 0
+    return torch.arange(start, start + k, device=device)
+
+
+class Program:
+    """One built stage chain; ``stages`` lists ``(StageSig, fn)`` in order."""
+
+    def __init__(self, plan: SolverPlan, spec: ProgramSpec):
+        lib = registry.get_backend(plan)
+        _, chain = _resolve_chain(plan, spec)
+        self.spec = spec
+        self.stages = tuple(
+            (sig, _STAGE_BUILDERS[(sig.role, sig.name)](lib, spec))
+            for sig in chain)
+
+    def initial_state(self, a: torch.Tensor) -> dict:
+        state = {"a": a}
+        if self.spec.kind in ("topk", "eigenvalues"):
+            n = a.shape[-1]
+            state["idx"] = _window_idx(n, self.spec.k or n, self.spec.largest,
+                                       a.device)
+        return state
+
+    def result(self, state: dict):
+        if self.spec.kind == "topk":
+            return TopkResult(state["lam_sel"], state["vecs"])
+        if self.spec.kind == "solve":
+            return SolveResult(state["lam"], state["mags"])
+        if "lam_sel" in state:  # windowed eigenvalue chain
+            return state["lam_sel"]
+        # A windowed query on a full chain (eigh): slice the spectrum.
+        return state["lam"][..., state["idx"]] if self.spec.k else state["lam"]
+
+    def __call__(self, a: torch.Tensor):
+        state = self.initial_state(a)
+        for _, fn in self.stages:
+            state.update(fn(state))
+        return self.result(state)
+
+
+@functools.lru_cache(maxsize=None)
+def program(plan: SolverPlan, spec: ProgramSpec) -> Program:
+    """The built program for one ``(plan, spec)``, cached."""
+    return Program(plan, spec)
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "SolverEngine runs on the card by default and found no CUDA "
+                "device; pass device='cpu' to run the plain PyTorch versions")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _map(fn, out):
+    if isinstance(out, tuple):
+        return type(out)(*(fn(x) for x in out))
+    return fn(out)
+
+
+def _concat(outs):
+    if isinstance(outs[0], tuple):
+        return type(outs[0])(*(torch.cat(xs, dim=0) for xs in zip(*outs)))
+    return torch.cat(outs, dim=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverEngine:
+    """Batched EEI solver executing one :class:`SolverPlan` on ``device``."""
+
+    plan: SolverPlan = SolverPlan()
+    device: Optional[torch.device] = None
+
+    def __post_init__(self):
+        if self.plan.method in NOT_PORTED:
+            raise NotImplementedError(
+                f"method {self.plan.method!r} is not ported yet "
+                f"({NOT_PORTED[self.plan.method]})")
+        object.__setattr__(self, "device", _resolve_device(self.device))
+
+    def solve(self, a) -> SolveResult:
+        """Eigenvalues and the full ``|v[i, j]|^2`` table (dense basis).
+        Always the method's full composition."""
+        return self._run(program(self.plan, ProgramSpec("solve")), a)
+
+    def topk(self, a, k: int, largest: bool = True) -> TopkResult:
+        """Top-k (eigenvalue, signed unit eigenvector) pairs per matrix."""
+        n = a.shape[-1]
+        if k < 1 or k > n:
+            raise ValueError(f"k={k} out of range for n={n}")
+        return self._run(
+            program(self.plan, ProgramSpec("topk", int(k), bool(largest))), a)
+
+    def eigenvalues(self, a, k: Optional[int] = None,
+                    largest: bool = True) -> torch.Tensor:
+        """Eigenvalues ``(..., n)`` ascending, or with ``k`` the ``k``
+        extremal ones ``(..., k)`` ascending via the windowed spectrum
+        stage (bitwise-equal to the matching slice of the full one)."""
+        n = a.shape[-1]
+        if k is not None and (k < 1 or k > n):
+            raise ValueError(f"k={k} out of range for n={n}")
+        spec = ProgramSpec("eigenvalues", int(k or 0),
+                           bool(largest) if k else True)
+        return self._run(program(self.plan, spec), a)
+
+    def _run(self, prog: Program, a):
+        a = torch.as_tensor(a, device=self.device)
+        if a.ndim not in (2, 3):
+            raise ValueError(f"expected (n, n) or (b, n, n), got {tuple(a.shape)}")
+        if self.plan.precision is not None:
+            a = a.to(_DTYPES[self.plan.precision])
+        if a.dtype not in _DTYPES.values():
+            raise TypeError(f"expected float32 or float64, got {a.dtype}")
+        squeeze = a.ndim == 2
+        if squeeze:
+            a = a.unsqueeze(0)
+        b = a.shape[0]
+        if b == 0:
+            raise ValueError("cannot solve an empty matrix stack")
+        step = self.plan.max_batch if self.plan.max_batch > 0 else b
+        # Every chunk runs at the full `step` shape: the ragged tail is
+        # padded with copies of its first matrix and sliced back.
+        pad_to = step if b > step else 0
+        outs = [self._run_chunk(prog, a[i0:i0 + step], pad_to)
+                for i0 in range(0, b, step)]
+        out = outs[0] if len(outs) == 1 else _concat(outs)
+        return _map(lambda x: x[0], out) if squeeze else out
+
+    def _run_chunk(self, prog: Program, a: torch.Tensor, pad_to: int = 0):
+        b = a.shape[0]
+        pad = max(b, pad_to) - b
+        if pad:
+            a = torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
+        out = prog(a)
+        return _map(lambda x: x[:b], out) if pad else out

@@ -1,0 +1,118 @@
+"""SolverPlan: one immutable record of every EEI pipeline choice.
+
+The twin of ``repro.engine.plan`` with the port's backend names:
+
+    method        eigh | eei_dense | eei_tridiag | eei_krylov | eei_krylov_si
+    spectrum      full | windowed   (the full-spectrum top-k chain, or the
+                  k-windowed chain that computes only the selected rows)
+    backend       reference | torch | cuda   (the twins of repro's
+                  reference | jnp | pallas: straightforward PyTorch, fused
+                  PyTorch reductions, and the hand-written CUDA kernels)
+    precision     None (keep the input dtype) | "float32" | "float64"
+    bisect_iters  Sturm bisection iterations (0 -> dtype default)
+    max_batch     microbatch bound for long stacks (0 -> no bound)
+
+:func:`plan_for` picks a plan from the problem shape on the static
+crossover constants below; the port has no calibration table yet, and
+``repro``'s table was measured on a CPU, so it is not read.  A plan may name
+a method the port does not run yet: ``SolverEngine`` then says which
+ROADMAP item brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Optional
+
+Method = Literal[
+    "eigh", "eei_dense", "eei_tridiag", "eei_krylov", "eei_krylov_si"]
+BackendName = Literal["reference", "torch", "cuda"]
+Spectrum = Literal["full", "windowed"]
+
+METHODS = ("eigh", "eei_dense", "eei_tridiag", "eei_krylov", "eei_krylov_si")
+BACKENDS = ("reference", "torch", "cuda")
+
+#: ``n`` at or below which a full ``eigh`` beats any EEI pipeline.
+EIGH_CROSSOVER_N = 24
+
+#: ``n`` up to which dense minor spectra beat tridiagonalize + Sturm.
+DENSE_CROSSOVER_N = 64
+
+#: ``k / n`` at or below which a top-k query plans the windowed chain.
+WINDOWED_K_FRAC = 0.5
+
+#: ``n`` at or above which a narrow top-k query plans the Krylov reduce.
+KRYLOV_N_MIN = 1024
+
+#: ``k / n`` at or below which the Krylov band is narrow enough to win.
+KRYLOV_K_FRAC = 1.0 / 16.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverPlan:
+    """Immutable, hashable description of one way to run the EEI pipeline."""
+
+    method: Method = "eei_tridiag"
+    backend: BackendName = "cuda"
+    spectrum: Spectrum = "full"
+    precision: Optional[str] = None  # None -> keep input dtype
+    bisect_iters: int = 0  # 0 -> dtype default
+    max_batch: int = 0  # 0 -> solve the whole stack at once
+
+    def __post_init__(self):
+        if self.method not in METHODS:
+            raise ValueError(f"unknown method {self.method!r}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.spectrum not in ("full", "windowed"):
+            raise ValueError(f"unknown spectrum {self.spectrum!r}")
+        if self.precision not in (None, "float32", "float64"):
+            raise ValueError(f"unknown precision {self.precision!r}")
+
+
+def plan_for(
+    shape: tuple,
+    *,
+    k: Optional[int] = None,
+    method: Optional[Method] = None,
+    backend: Optional[BackendName] = None,
+    spectrum: Optional[Spectrum] = None,
+    precision: Optional[str] = None,
+    bisect_iters: int = 0,
+) -> SolverPlan:
+    """Pick a plan from the problem shape ``(n, n)`` or ``(b, n, n)``.
+
+    ``k`` is the number of eigenpairs the caller will ask for (``None``: the
+    full table).  Explicit keywords override the heuristics:
+
+    * ``n <= EIGH_CROSSOVER_N``, or ``k >= n``: ``eigh``;
+    * ``n <= DENSE_CROSSOVER_N``: dense minors (``eei_dense``);
+    * otherwise the tridiagonal path (``eei_tridiag``), or the Krylov reduce
+      for a narrow window (``k <= n / 16``) on a large matrix
+      (``n >= KRYLOV_N_MIN``);
+    * a window with ``k <= WINDOWED_K_FRAC * n`` plans the windowed chain.
+
+    The backend defaults to ``cuda``, the hand-written kernels.
+    """
+    if len(shape) not in (2, 3):
+        raise ValueError(f"expected (n, n) or (b, n, n), got {shape}")
+    n = shape[-1]
+    if backend is None:
+        backend = "cuda"
+    if method is None:
+        if n <= EIGH_CROSSOVER_N or (k is not None and k >= n):
+            method = "eigh"
+        elif n <= DENSE_CROSSOVER_N:
+            method = "eei_dense"
+        else:
+            method = "eei_tridiag"
+        if (method == "eei_tridiag" and k is not None and 0 < k < n
+                and k <= KRYLOV_K_FRAC * n and n >= KRYLOV_N_MIN):
+            method = "eei_krylov"
+    if spectrum is None:
+        spectrum = "full"
+        if (method != "eigh" and k is not None and 0 < k < n
+                and k <= WINDOWED_K_FRAC * n):
+            spectrum = "windowed"
+    return SolverPlan(method=method, backend=backend, spectrum=spectrum,
+                      precision=precision, bisect_iters=bisect_iters)

@@ -1,0 +1,2 @@
+"""The Sturm bisection kernel: ``kernel`` (CUDA wrapper and plain version),
+``ops`` (public entry points) and ``ref`` (pure-PyTorch oracle)."""
