@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the repro_torch main path on one NVIDIA card and check it.
+"""Drive the repro_torch paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -9,17 +9,36 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
    ``nvcc -Xptxas -v``'s registers and shared memory per kernel;
 2. hold each kernel against its plain PyTorch version at the main path's
-   shapes (b = 16 matrices of n = 600), in float64 and float32, and check
-   the two bitwise contracts (a Sturm window equals the slice of the full
-   spectrum; windowed prod-diff rows equal the full table's rows);
+   shapes (b = 16 matrices of n = 600), in float64 and float32:
+   - the Sturm and prod-diff kernels, and their two bitwise contracts (a
+     Sturm window equals the slice of the full spectrum; windowed prod-diff
+     rows equal the full table's rows);
+   - the segmented Sturm kernel, bitwise, on the 16 bands packed 4 to a row
+     and on the 9600 minor bands packed 4 to a row, and from warm brackets
+     after a rank-1 update (some made stale on purpose); with one full-band
+     segment it equals the Sturm kernel's window bitwise;
+   - the masked (random per-matrix mask) and single-matrix prod-diff
+     kernels;
 3. run ``SolverEngine`` on the ``cuda`` backend (solve, windowed and full
-   top-k, eigenvalues full and windowed) with every launch count set to 0
-   just before and read just after, and check each result against
+   top-k, eigenvalues full and windowed) and check each result against
    ``torch.linalg.eigh``;
-4. time each kernel (CUDA events) beside its bound, its plain version and
+4. run the masked and single-matrix prod-diff kernels through their op
+   entry points (``logabs_sum_batched(mask=)``, ``logabs_sum``,
+   ``eei_magnitudes``) and check what they compute;
+5. run a streaming session at n = 600, k = 8 (2 warm-up rank-1 updates, 32
+   at 1% of ``||A||_F``, 2 at 60%) and check every step against float64
+   ``eigvalsh`` and the verify stage: the stream must take the fast path
+   with one segmented-Sturm launch per update, and the large updates must
+   force a drift re-solve, with no verify re-solve; the host rung may run
+   only for a float32 re-solve after a large update, and only where the
+   card's own re-solve of that matrix fails verify;
+6. time each kernel (CUDA events) beside its bound, its plain version and
    the library yardstick, split one solve into its stages, and time the
-   end-to-end solve against ``torch.linalg.eigh``.
+   end-to-end solve against ``torch.linalg.eigh`` and the session update
+   against a top-k from scratch.
 
+Every launch count is set to 0 just before each of phases 3, 4 and 5 and
+read just after, and a kernel that its path did not launch fails the run.
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 TF32 is off for matmul and cuDNN throughout, so float32 products run in
@@ -59,6 +78,19 @@ PEAK_BYTES = 3.35e12
 STURM_OPS_PER_STEP = 8
 #: Operations per prod-diff term: a subtract, an abs, a max, a log, an add.
 PROD_DIFF_OPS_PER_TERM = 5
+#: Segments packed to a row for the segmented Sturm kernel, and the rows of
+#: the packed minor bands whose segments the eigvalsh yardstick takes (its
+#: time is scaled to all rows).
+SEG_S = 4
+SEG_LIBRARY_ROWS = 64
+#: Operations per segmented Sturm step beside the recurrence's: the two
+#: compares of the step against the lane's segment.
+SEGMENT_COMPARE_OPS = 2
+#: The session stream (benchmarks/throughput.py:682-785): warm-up updates,
+#: updates at ~1% of ||A||_F, then updates at ~60%; every step's eigenvalues
+#: within SESSION_TOL of the spectral span of float64 eigvalsh.
+SESSION_WARMUP, SESSION_STREAM, SESSION_BIG = 2, 32, 2
+SESSION_TOL = 5e-3
 
 
 class PhaseError(RuntimeError):
@@ -103,8 +135,14 @@ def main() -> int:
 
     stack = _stack(torch, dev)
     kernels = _phase_kernels(torch, dev, stack)
+    segmented = _phase_segmented(torch, dev, stack, kernels)
+    variants = _phase_prod_diff_variants(torch, dev, kernels)
     counts = _phase_engine(torch, dev, stack)
+    op_counts = _phase_ops(torch, dev, kernels)
+    sessions = _phase_session(torch, dev, stack)
     records = _phase_timing(torch, dev, stack, kernels, counts)
+    records += _phase_timing_other_kernels(torch, dev, kernels, segmented, variants,
+                                 op_counts, sessions)
 
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(
@@ -141,11 +179,12 @@ def _events_ms(torch, fn, warmup: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn) -> float:
-    """Time the card spent in kernels and copies during one call of ``fn``:
-    the durations of torch.profiler's device-side events, 0.0 if it
-    recorded none.  (Summing the ops' self device times instead would count
-    a PyTorch kernel twice, under its op and under its own name.)"""
+def _device_ms(torch, fn):
+    """Time the card spent in kernels and copies during one call of ``fn``,
+    and their number: the durations of torch.profiler's device-side events
+    (0.0 and 0 if it recorded none).  (Summing the ops' self device times
+    instead would count a PyTorch kernel twice, under its op and under its
+    own name.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,8 +192,8 @@ def _device_ms(torch, fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3, len(device)
 
 
 def _max_err(torch, got, ref, rtol: float, atol: float, what: str) -> float:
@@ -340,20 +379,25 @@ def _check_eigenvalues(torch, a, lam, name, what, k=None):
           f"max error {float((lam.double() - lam_ref).abs().max()):.3e}")
 
 
-def _reset_counts():
-    from repro_torch.kernels.prod_diff.kernel import logabs_sum
-    from repro_torch.kernels.sturm.kernel import sturm_bisect
+def _wrappers():
+    """Every kernel wrapper, by the name of its launch count."""
+    from repro_torch.kernels.prod_diff import kernel as pd
+    from repro_torch.kernels.sturm import kernel as st
 
-    sturm_bisect.launches = 0
-    logabs_sum.launches = 0
+    return {"sturm_bisect": st.sturm_bisect,
+            "sturm_segmented": st.sturm_segmented,
+            "logabs_sum": pd.logabs_sum,
+            "logabs_sum_masked": pd.logabs_sum_masked,
+            "logabs_sum_single": pd.logabs_sum_single}
+
+
+def _reset_counts():
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
 def _read_counts():
-    from repro_torch.kernels.prod_diff.kernel import logabs_sum
-    from repro_torch.kernels.sturm.kernel import sturm_bisect
-
-    return {"sturm_bisect": sturm_bisect.launches,
-            "logabs_sum": logabs_sum.launches}
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def _phase_engine(torch, dev, stack):
@@ -387,7 +431,8 @@ def _phase_engine(torch, dev, stack):
         print(f"[engine] launches on the main path, {name} (solve, topk "
               f"windowed, topk full, eigenvalues, eigenvalues k): "
               f"{counts[name]}")
-        check(all(v > 0 for v in counts[name].values()),
+        check(counts[name]["sturm_bisect"] > 0
+              and counts[name]["logabs_sum"] > 0,
               f"a kernel of the main path was never launched: {counts[name]}")
 
     for name, a in inputs.items():
@@ -437,7 +482,9 @@ def _phase_timing(torch, dev, stack, kernels, counts):
     for name, kd in kernels.items():
         elsize = kd["d"].element_size()
         iters = kd["iters"]
-        launches = (counts[name], per_solve[name])
+        path, solve = counts[name], per_solve[name]
+        st_launches = dict(launches=path["sturm_bisect"],
+                           launches_per_solve=solve["sturm_bisect"])
 
         # Sturm, full spectrum; yardstick: eigvalsh of the dense tridiagonal.
         ms = _events_ms(torch, lambda: sturm_bisect(
@@ -449,9 +496,10 @@ def _phase_timing(torch, dev, stack, kernels, counts):
         del dense
         bound, by = _sturm_cost(B, N, N, iters, elsize, name)
         records.append(_record(
-            f"sturm_bisect[spectrum {B}x{N} {name}]", "sturm", launches,
-            kd["err"]["spectrum"], ms, kd["plain_ms"]["spectrum"], bound, by,
-            lib_ms))
+            f"sturm_bisect[spectrum {B}x{N} {name}]", "sturm",
+            err=kd["err"]["spectrum"], ms=ms,
+            plain_ms=kd["plain_ms"]["spectrum"], bound_ms=bound, bound_by=by,
+            library_ms=lib_ms, **st_launches))
 
         # Sturm, all stacked minor bands; yardstick: eigvalsh of the dense
         # minor tridiagonals, in row chunks of at most LIBRARY_CHUNK_BYTES.
@@ -465,8 +513,8 @@ def _phase_timing(torch, dev, stack, kernels, counts):
         bound, by = _sturm_cost(B * N, N - 1, N - 1, iters, elsize, name)
         records.append(_record(
             f"sturm_bisect[minor_spectra {B * N}x{N - 1} {name}]", "sturm",
-            launches, kd["err"]["minor"], ms, kd["plain_ms"]["minor"], bound,
-            by, lib_ms))
+            err=kd["err"]["minor"], ms=ms, plain_ms=kd["plain_ms"]["minor"],
+            bound_ms=bound, bound_by=by, library_ms=lib_ms, **st_launches))
 
         # Prod-diff numerator table; no single library call.
         ms = _events_ms(torch, lambda: logabs_sum(
@@ -475,9 +523,12 @@ def _phase_timing(torch, dev, stack, kernels, counts):
         nbytes = (B * N + B * N * (N - 1) + B + B * N * N) * elsize
         bound, by = _bound(terms * PROD_DIFF_OPS_PER_TERM, nbytes, name)
         records.append(_record(
-            f"logabs_sum[{B}x{N}x{N}x{N - 1} {name}]", "prod_diff", launches,
-            kd["err"]["prod_diff"], ms, kd["plain_ms"]["prod_diff"], bound,
-            by, None))
+            f"logabs_sum[{B}x{N}x{N}x{N - 1} {name}]", "prod_diff",
+            launches=path["logabs_sum"],
+            launches_per_solve=solve["logabs_sum"],
+            err=kd["err"]["prod_diff"], ms=ms,
+            plain_ms=kd["plain_ms"]["prod_diff"], bound_ms=bound,
+            bound_by=by, library_ms=None))
 
     print(f"[timing] bounds: {STURM_OPS_PER_STEP} operations per Sturm "
           f"recurrence step, {PROD_DIFF_OPS_PER_TERM} per prod-diff term, "
@@ -485,9 +536,7 @@ def _phase_timing(torch, dev, stack, kernels, counts):
           f"{PEAK_OPS['float32'] / 1e12:.0f} TFLOP/s (float32); bytes against "
           f"{PEAK_BYTES / 1e12:.2f} TB/s")
     for r in records:
-        print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
-              f" ms by {r['bound_by']}; plain {r['plain_ms']:.1f} ms; library "
-              f"{'none' if r['library_ms'] is None else '%.4f ms' % r['library_ms']})")
+        _print_record(r)
 
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -506,7 +555,7 @@ def _phase_timing(torch, dev, stack, kernels, counts):
             out = fn(state)
             torch.cuda.synchronize()
             split[sig.role] = (time.perf_counter() - t) * 1e3
-            busy[sig.role] = _device_ms(torch, lambda: fn(state))
+            busy[sig.role] = _device_ms(torch, lambda: fn(state))[0]
             state.update(out)
         print(f"[timing] solve stages {name} (ms): " + ", ".join(
             f"{role} {v:.2f}" for role, v in split.items()))
@@ -537,6 +586,13 @@ def _phase_timing(torch, dev, stack, kernels, counts):
               f"{solve_ms:.2f} ms, torch.linalg.eigh {eigh_ms:.2f} ms "
               f"(median of 3)")
     return records
+
+
+def _print_record(r):
+    library = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
+          f" ms by {r['bound_by']}; plain {r['plain_ms']:.1f} ms; library "
+          f"{library})")
 
 
 def _minor_library_ms(torch, kd):
@@ -576,24 +632,573 @@ def _minor_library_ms(torch, kd):
     return total, calls, err
 
 
+def _pack(torch, d, e, seg):
+    """Pack ``seg`` bands of ``d (b, n)``, ``e (b, n-1)`` to a row, with
+    zero off-diagonals at the junctions: ``(b / seg, seg * n)`` bands and
+    their segment layout ``seg_off``, ``seg_len``."""
+    b, n = d.shape
+    rows = b // seg
+    dp = d.reshape(rows, seg * n).contiguous()
+    ep = torch.zeros((rows, seg, n), dtype=e.dtype, device=e.device)
+    ep[:, :, :n - 1] = e.reshape(rows, seg, n - 1)
+    ep = ep.reshape(rows, seg * n)[:, :-1].contiguous()
+    off = (torch.arange(seg, dtype=torch.int32, device=d.device) * n
+           ).expand(rows, seg).contiguous()
+    length = torch.full((rows, seg), n, dtype=torch.int32, device=d.device)
+    return dp, ep, off, length
+
+
+def _plain_ms(torch, fn):
+    """One call of a plain version on the card: its result and wall ms."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _phase_segmented(torch, dev, stack, kernels):
+    """The segmented Sturm kernel against its plain version, bitwise, on
+    packed bands and on warm brackets, and its contract with the Sturm
+    kernel's window."""
+    import numpy as np
+
+    from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.kernels.sturm import ops as st_ops
+    from repro_torch.linalg import householder, interlace
+    from repro_torch.linalg.sturm import _pivmin, gershgorin_bounds
+
+    out = {}
+    for name, kd in kernels.items():
+        d, e, iters = kd["d"], kd["e"], kd["iters"]
+        tol = TOL[("sturm", name)]
+
+        def both(dd, ee, lanes):
+            got = st_kernel.sturm_segmented(dd, ee, **lanes, n_iter=iters)
+            plain, ms = _plain_ms(
+                torch, lambda: st_kernel.sturm_segmented_plain(
+                    dd, ee, **lanes, n_iter=iters))
+            return got, plain, ms
+
+        # The 16 bands packed SEG_S to a row.
+        dp, ep, off, length = _pack(torch, d, e, SEG_S)
+        for largest in (True, False):
+            lanes = st_ops.segmented_lanes(dp, ep, off, length, k=K,
+                                           largest=largest)
+            got, plain, _ = both(dp, ep, lanes)
+            check(torch.equal(got, plain), f"sturm_segmented {name} "
+                  f"({B // SEG_S}, {SEG_S * N}) largest={largest}: kernel "
+                  f"!= plain version")
+            win = st_ops.sturm_eigenvalues(d, e, window=(K, largest))
+            err = _max_err(torch, got.reshape(B, K), win, *tol,
+                           f"sturm_segmented {name} vs the bands' windows")
+            print(f"[kernels] sturm_segmented {name} ({B // SEG_S}, "
+                  f"{SEG_S * N}), S={SEG_S}, k={K}, largest={largest}: "
+                  f"bitwise-equal to the plain version; max abs err against "
+                  f"each band's Sturm window {err:.3e}")
+
+        # The 9600 minor bands packed SEG_S to a row: the timed shape.
+        dmp, emp, moff, mlen = _pack(torch, kd["dm"], kd["em"], SEG_S)
+        lanes = st_ops.segmented_lanes(dmp, emp, moff, mlen, k=K,
+                                       largest=True)
+        mgot, plain, plain_ms = both(dmp, emp, lanes)
+        check(torch.equal(mgot, plain), f"sturm_segmented {name} minor "
+              f"bands {tuple(dmp.shape)}: kernel != plain version")
+        plain_err = float((mgot - plain).abs().max())
+        top = kd["mu"].reshape(B * N, N - 1)[:, -K:]
+        err = _max_err(torch, mgot.reshape(B * N, K), top, *tol,
+                       f"sturm_segmented {name} minor bands vs sturm_bisect")
+        same = torch.equal(mgot.reshape(B * N, K), top)
+        print(f"[kernels] sturm_segmented {name} minor bands "
+              f"{tuple(dmp.shape)}, S={SEG_S}, k={K}: bitwise-equal to the "
+              f"plain version; against sturm_bisect's minor spectra max abs "
+              f"err {err:.3e} (bitwise: {same})")
+
+        # Warm brackets after a rank-1 update A' = A + rho u u^T, the first
+        # four matrices' brackets made stale on purpose.
+        rng = np.random.default_rng(SEED + 1)
+        a = stack.to(d.dtype)
+        u = torch.as_tensor(rng.standard_normal((B, N)), dtype=d.dtype,
+                            device=dev)
+        u = u / u.norm(dim=-1, keepdim=True)
+        fro = a.norm(dim=(-2, -1))
+        rho = 0.01 * fro
+        a2 = a + rho[:, None, None] * u[:, :, None] * u[:, None, :]
+        d2, e2, _ = householder.tridiagonalize(a2, with_q=False)
+        lo, hi = interlace.rank1_update_brackets(
+            kd["lam"][:, -K:], rho, drift_bound=(1e-6 * fro)[:, None])
+        lo[:4] += 5.0
+        hi[:4] += 5.0
+        blanes = st_ops.bracketed_lanes(d2, e2, lo, hi, k=K, largest=True)
+        kept = (blanes["lo"] == lo) & (blanes["hi"] == hi)
+        check(not bool(kept[:4].any()), "a stale bracket passed validation")
+        check(int(kept[4:].sum()) >= (B - 4) * K // 2,
+              f"only {int(kept[4:].sum())} warm brackets passed validation")
+        got, plain, _ = both(d2, e2, blanes)
+        check(torch.equal(got, plain),
+              f"sturm_segmented {name} warm brackets: kernel != plain version")
+        err = _max_err(torch, got, st_ops.sturm_eigenvalues(
+            d2, e2, window=(K, True)), *tol,
+            f"sturm_eigenvalues_bracketed {name} vs the Sturm window")
+        print(f"[kernels] sturm_eigenvalues_bracketed {name} ({B}, {N}), "
+              f"k={K}: {int(kept.sum())} of {B * K} warm brackets kept, the "
+              f"{int((~kept).sum())} others (all stale ones among them) on "
+              f"Gershgorin; bitwise-equal to the plain version; max abs err "
+              f"against the updated bands' Sturm window {err:.3e}")
+
+        # Contract: one full-band segment and the Gershgorin bracket give
+        # the Sturm kernel's window, bitwise.
+        glo, ghi = gershgorin_bounds(d, e)
+
+        def lane(x):
+            return x.unsqueeze(-1).expand(B, K).contiguous()
+
+        targets = torch.arange(N - K, N, dtype=torch.int32,
+                               device=dev).expand(B, K).contiguous()
+        full = st_kernel.sturm_segmented(
+            d, e, lane(glo), lane(ghi), lane(_pivmin(d, e)),
+            torch.zeros_like(targets), torch.full_like(targets, N), targets,
+            n_iter=iters)
+        check(torch.equal(full, st_ops.sturm_eigenvalues(d, e,
+                                                         window=(K, True))),
+              f"sturm_segmented {name}: one full-band segment != the "
+              f"sturm_bisect window")
+        print(f"[kernels] sturm_segmented {name}: one full-band segment with "
+              f"the Gershgorin bracket is bitwise the sturm_bisect window")
+        out[name] = dict(dm=dmp, em=emp, lanes=lanes, got=mgot, iters=iters,
+                         err=plain_err, plain_ms=plain_ms)
+    return out
+
+
+def _phase_prod_diff_variants(torch, dev, kernels):
+    """The masked and single-matrix prod-diff kernels against their plain
+    versions."""
+    import numpy as np
+
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+
+    out = {}
+    for name, kd in kernels.items():
+        lam, mu, floor = kd["lam"], kd["mu"], kd["floor"]
+        tol = TOL[("prod_diff", name)]
+        rng = np.random.default_rng(SEED + 2)
+        mask = torch.as_tensor(rng.random((B, N, N - 1)) > 0.25, device=dev)
+        got = pd_kernel.logabs_sum_masked(lam, mu, mask, floor)
+        plain, masked_plain_ms = _plain_ms(
+            torch, lambda: pd_kernel.logabs_sum_masked_plain(lam, mu, mask,
+                                                             floor))
+        masked_err = _max_err(torch, got, plain, *tol,
+                              f"logabs_sum_masked {name}")
+        lam0, mu0, floor0 = lam[0], mu[0], floor[0]
+        one = pd_kernel.logabs_sum_single(lam0, mu0, floor0)
+        plain, single_plain_ms = _plain_ms(
+            torch, lambda: pd_kernel.logabs_sum_single_plain(lam0, mu0,
+                                                             floor0))
+        single_err = _max_err(torch, one, plain, *tol,
+                              f"logabs_sum_single {name}")
+        check(torch.equal(one, pd_kernel.logabs_sum(lam, mu, floor)[0]),
+              f"logabs_sum_single {name} != logabs_sum's first matrix")
+        print(f"[kernels] logabs_sum_masked {name} ({B}, {N}, {N}, {N - 1}), "
+              f"random per-matrix mask ({int(mask.sum())} of {mask.numel()} "
+              f"cells valid): max abs err {masked_err:.3e}; logabs_sum_single"
+              f" {name} ({N}, {N}, {N - 1}): max abs err {single_err:.3e}, "
+              f"bitwise logabs_sum's first matrix")
+        out[name] = dict(mask=mask, masked_err=masked_err,
+                         masked_plain_ms=masked_plain_ms,
+                         single_err=single_err,
+                         single_plain_ms=single_plain_ms)
+    return out
+
+
+def _phase_ops(torch, dev, kernels):
+    """The masked and single-matrix kernels through their op entry points,
+    with the counts set to 0 just before and read just after."""
+    import numpy as np
+
+    from repro_torch.kernels.prod_diff import ops as pd_ops
+    from repro_torch.linalg.householder import tridiagonal_matrix
+
+    counts = {}
+    for name, kd in kernels.items():
+        lam, mu, floor = kd["lam"], kd["mu"], kd["floor"]
+        # Each matrix's valid block is its own: rows j < J_b, terms k < K_b.
+        rng = np.random.default_rng(SEED + 3)
+        j_b = rng.integers(N // 2, N + 1, size=B).tolist()
+        k_b = rng.integers(N // 2, N, size=B).tolist()
+        jj = torch.arange(N, device=dev)[None, :, None]
+        kk = torch.arange(N - 1, device=dev)[None, None, :]
+        ragged = ((jj < torch.tensor(j_b, device=dev)[:, None, None])
+                  & (kk < torch.tensor(k_b, device=dev)[:, None, None]))
+        _reset_counts()
+        num = pd_ops.logabs_sum_batched(lam, mu, floor, mask=ragged)
+        mags = pd_ops.eei_magnitudes(lam[0], mu[0])
+        one = pd_ops.logabs_sum(lam[0], mu[0], floor[0])
+        torch.cuda.synchronize()
+        counts[name] = _read_counts()
+        print(f"[ops] launches through the op entry points, {name} "
+              f"(logabs_sum_batched(mask=), eei_magnitudes, logabs_sum): "
+              f"{counts[name]}")
+        check(counts[name]["logabs_sum_masked"] == 1
+              and counts[name]["logabs_sum_single"] == 2,
+              f"the op entry points did not launch their kernels: "
+              f"{counts[name]}")
+        # A masked cell adds exactly 0, so each matrix's rows are the
+        # unmasked kernel's on its own valid block, bitwise.
+        for b in range(B):
+            ref = pd_ops.logabs_sum_batched(
+                lam[b:b + 1], mu[b:b + 1, :j_b[b], :k_b[b]].contiguous(),
+                floor[b:b + 1])
+            check(torch.equal(num[b:b + 1, :, :j_b[b]], ref),
+                  f"logabs_sum_batched(mask=) {name}, matrix {b}: != the "
+                  f"unmasked kernel on its valid block")
+        check(torch.equal(one, pd_ops.logabs_sum_batched(
+            lam[:1], mu[:1], floor[:1])[0]),
+            f"logabs_sum {name} != logabs_sum_batched's first matrix")
+        # eei_magnitudes of the first band against eigh of its tridiagonal.
+        t0 = tridiagonal_matrix(kd["d"][0], kd["e"][0]).double()
+        w = torch.linalg.eigh(t0)[1]
+        ref = (w * w).transpose(0, 1)
+        batched = pd_ops.eei_magnitudes_batched(lam[:1], mu[:1])[0]
+        _max_err(torch, mags, batched, *TOL[("prod_diff", name)],
+                 f"eei_magnitudes {name} vs eei_magnitudes_batched")
+        if name == "float64":
+            err = _max_err(torch, mags, ref, 1e-4, 1e-7,
+                           f"eei_magnitudes {name} vs eigh")
+        else:
+            worst = float(_row_err(mags, ref).max())
+            check(worst <= F32_ROW_LIMIT, f"eei_magnitudes {name}: a row is "
+                  f"off by {worst:.3e} (relative 2-norm) > {F32_ROW_LIMIT:g}")
+            err = float((mags.double() - ref).abs().max())
+        print(f"[ops] {name}: logabs_sum_batched(mask=) rows bitwise the "
+              f"unmasked kernel's on each matrix's valid block; logabs_sum "
+              f"bitwise logabs_sum_batched; eei_magnitudes of band 0 within "
+              f"tolerance of eigh (max abs err {err:.3e})")
+    return counts
+
+
+def _phase_session(torch, dev, stack):
+    """A streaming session on one n = 600 matrix of the stack, per dtype,
+    every step checked against float64 eigvalsh and the verify stage."""
+    import numpy as np
+
+    from repro_torch import (Rank1Update, SessionConfig, SolverEngine,
+                             SolverPlan, plan_for)
+    from repro_torch.engine import session as session_mod
+    from repro_torch.engine.verify import verify_topk_host
+    from repro_torch.kernels.sturm.kernel import sturm_segmented
+
+    # Every run of the host rung, with where in the stream it ran and the
+    # matrix it was given.
+    reseeds, where = [], {}
+    host_reseed = session_mod.host_reseed
+
+    def counted_reseed(session, a_new, *args, **kwargs):
+        reseeds.append(dict(where, a=a_new.detach().cpu().numpy()))
+        return host_reseed(session, a_new, *args, **kwargs)
+
+    session_mod.host_reseed = counted_reseed
+    out = {}
+    try:
+        for name in ("float64", "float32"):
+            dtype = getattr(torch, name)
+            a_np = stack[0].cpu().numpy()
+            plan = SolverPlan(method="eei_tridiag", backend="cuda",
+                              precision=name)
+            engine = SolverEngine(plan)
+            rng = np.random.default_rng(SEED + 4)
+            fro = float(np.linalg.norm(a_np))
+            small = np.sqrt(0.01 * fro / N)
+            big = np.sqrt(0.6 * fro / N)
+            span0 = None
+            worst = 0.0
+
+            def check_step(res, a_now, what):
+                nonlocal span0, worst
+                lam = np.linalg.eigvalsh(a_now)
+                if span0 is None:
+                    span0 = float(lam[-1] - lam[0])
+                got = res.eigenvalues.double().cpu().numpy()
+                vecs = res.vectors.double().cpu().numpy()
+                rel = float(np.max(np.abs(got - lam[-K:]))) / span0
+                worst = max(worst, rel)
+                check(rel <= SESSION_TOL, f"session {name} {what}: eigenvalue "
+                      f"error {rel:.3e} of the span > {SESSION_TOL:g}")
+                flags = verify_topk_host(a_now, got, vecs)
+                check(bool(flags.ok), f"session {name} {what}: verify failed "
+                      f"({flags})")
+
+            def update(scale, what):
+                nonlocal a_np
+                where["stage"] = what
+                u = rng.standard_normal(N) * scale
+                a_np = a_np + np.outer(u, u)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = engine.update(session, Rank1Update(u, 1))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                check_step(res, a_np, what)
+                return ms
+
+            where.update(dtype=name, stage="open")
+            _reset_counts()
+            session = engine.open_session(
+                a_np, K, config=SessionConfig(drift_bound=0.5))
+            check_step(session.result(), a_np, "open")
+            check(session.dtype == dtype, f"session dtype {session.dtype}")
+            for i in range(SESSION_WARMUP):
+                update(small, f"warm-up {i}")
+            fast0 = session.fast_updates
+            seg0 = sturm_segmented.launches
+            times = [update(small, f"stream {i}")
+                     for i in range(SESSION_STREAM)]
+            stream_fast = session.fast_updates - fast0
+            stream_seg = sturm_segmented.launches - seg0
+            for i in range(SESSION_BIG):
+                update(big, f"large {i}")
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            stats = session.stats()
+            mine = [r for r in reseeds if r["dtype"] == name]
+            print(f"[session] {name} n={N} k={K} m_keep={stats['m_keep']}: "
+                  f"{stats}; launches on the session path {counts}; host "
+                  f"reseeds {[r['stage'] for r in mine]}; worst eigenvalue "
+                  f"error {worst:.3e} of the span")
+            check(stream_fast == SESSION_STREAM, f"session {name}: "
+                  f"{stream_fast} of {SESSION_STREAM} stream updates took "
+                  f"the fast path")
+            check(stream_seg == SESSION_STREAM, f"session {name}: "
+                  f"{stream_seg} segmented Sturm launches over "
+                  f"{SESSION_STREAM} fast updates")
+            check(counts["sturm_segmented"] == stats["fast_updates"],
+                  f"session {name}: {counts['sturm_segmented']} segmented "
+                  f"Sturm launches for {stats['fast_updates']} fast updates")
+            causes = stats["resolves_by_cause"]
+            check(causes.get("drift", 0) >= 1,
+                  f"session {name}: the large updates forced no drift "
+                  f"re-solve: {causes}")
+            check("verify" not in causes,
+                  f"session {name}: a fast update failed verify: {causes}")
+            # The host rung may only have run where the session's own
+            # re-solve could not pass verify: in float32, on the matrix a
+            # large update left (a dominant eigenvalue takes the float32 EEI
+            # components past the residual bound, in repro as well:
+            # tests/test_torch_session.py).  Never in float64, and never for
+            # the open, the warm-up or the stream.
+            for r in mine:
+                check(name == "float32" and r["stage"].startswith("large"),
+                      f"session {name}: the host rung ran for {r['stage']}")
+                a_r = torch.as_tensor(r["a"], dtype=dtype, device=dev)
+                res = engine.topk(a_r, session.m_keep)
+                flags = verify_topk_host(r["a"], res.eigenvalues.cpu().numpy(),
+                                         res.vectors.cpu().numpy())
+                check(not bool(flags.ok), f"session {name}: the host rung ran "
+                      f"for {r['stage']} although the card's re-solve passes "
+                      f"verify ({flags})")
+                print(f"[session] {name}: the re-solve after {r['stage']} fell"
+                      f" to the host rung: the card's top-{session.m_keep} of "
+                      f"that matrix has residual {float(flags.residual):.3e} of"
+                      f" ||A||_F > the verify bound; top eigenvalue "
+                      f"{float(np.linalg.eigvalsh(r['a'])[-1]):.2f}, "
+                      f"||A||_F {float(np.linalg.norm(r['a'])):.2f}")
+            check(counts["sturm_bisect"] > 0 and counts["logabs_sum"] > 0,
+                  f"session {name}: the re-solves ran no main-path kernel")
+
+            # Latency: the warm update against a top-k from scratch (the
+            # session's plan, and the windowed plan plan_for picks) and
+            # torch.linalg.eigh, on the stream's last matrix.
+            a_t = torch.as_tensor(a_np, dtype=dtype, device=dev)
+            windowed = SolverEngine(plan_for(tuple(a_t.shape), k=K,
+                                             precision=name))
+
+            def wall(fn, reps=3):
+                fn()
+                times_ = []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times_.append((time.perf_counter() - t) * 1e3)
+                return float(np.median(times_))
+
+            lat = {"update_ms": float(np.median(times)),
+                   "update_ms_min": float(np.min(times)),
+                   "update_ms_max": float(np.max(times)),
+                   "topk_scratch_ms": wall(lambda: engine.topk(a_t, K)),
+                   "topk_windowed_ms": wall(lambda: windowed.topk(a_t, K)),
+                   "eigh_ms": wall(lambda: torch.linalg.eigh(a_t))}
+            print(f"[session] {name} latency (ms): warm update median "
+                  f"{lat['update_ms']:.3f} (min {lat['update_ms_min']:.3f}, "
+                  f"max {lat['update_ms_max']:.3f}, {SESSION_STREAM} updates)"
+                  f"; engine.topk from scratch {lat['topk_scratch_ms']:.3f} "
+                  f"(session plan), {lat['topk_windowed_ms']:.3f} (windowed "
+                  f"plan); torch.linalg.eigh {lat['eigh_ms']:.3f} (median "
+                  f"of 3)")
+            _split_update(torch, dev, engine, session, rng, small, name)
+            out[name] = dict(counts=counts, stats=stats, latency=lat,
+                             reseeds=[r["stage"] for r in mine])
+    finally:
+        session_mod.host_reseed = host_reseed
+    return out
+
+
+def _split_update(torch, dev, engine, session, rng, scale, name):
+    """One more update of ``session``'s state (not committed) split into
+    the update program's stages: wall ms (median of 5, synchronised around
+    each), and the card's kernel ms and kernel count for one more run of
+    the stage (torch.profiler)."""
+    from repro_torch.engine.engine import update_program
+
+    prog = update_program(engine.plan, session.k, session.largest,
+                          session.m_keep, session.n_aug)
+    u = torch.as_tensor(rng.standard_normal(N) * scale, dtype=session.dtype,
+                        device=dev)
+    rho = (u * u).sum().reshape(1)
+    state = prog.initial_state(session.a[None], session.basis[None],
+                               session.theta[None], (u / rho.sqrt())[None],
+                               rho)
+    parts = []
+    for sig, fn in prog.stages:
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        busy, launched = _device_ms(torch, lambda: fn(state))
+        state.update(out)
+        parts.append(f"{sig.name} {sorted(times)[2]:.3f} ms ({launched} "
+                     f"device events, {busy:.3f} ms busy)")
+    print(f"[session] {name} one update by stage: " + "; ".join(parts))
+
+
+def _phase_timing_other_kernels(torch, dev, kernels, segmented, variants, op_counts,
+                      sessions):
+    """Time the segmented Sturm, masked and single-matrix prod-diff kernels
+    beside their bounds, plain versions and library yardsticks."""
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+    from repro_torch.kernels.sturm import kernel as st_kernel
+
+    records = []
+    for name, kd in kernels.items():
+        elsize = kd["d"].element_size()
+        sg = segmented[name]
+        dmp, emp, lanes, iters = sg["dm"], sg["em"], sg["lanes"], sg["iters"]
+        rows, n_band = dmp.shape
+        m = lanes["lo"].shape[1]
+        ms = _events_ms(torch, lambda: st_kernel.sturm_segmented(
+            dmp, emp, **lanes, n_iter=iters), warmup=1, reps=3)
+        # What any implementation must do: the steps inside each lane's own
+        # segment, with the segment compare.
+        seg_steps = int((lanes["end"] - lanes["start"]).sum())
+        ops = seg_steps * iters * (STURM_OPS_PER_STEP + SEGMENT_COMPARE_OPS)
+        nbytes = ((rows * n_band + rows * (n_band - 1) + 4 * rows * m)
+                  * elsize + 3 * rows * m * 4)
+        bound, by = _bound(ops, nbytes, name)
+        lib_ms, lib_err = _segment_library_ms(torch, kd, sg)
+        print(f"[timing] eigvalsh of the dense segment tridiagonals of the "
+              f"first {SEG_LIBRARY_ROWS} packed rows "
+              f"({SEG_LIBRARY_ROWS * SEG_S} segments) {name}, scaled to all "
+              f"{rows} rows: {lib_ms:.1f} ms; max abs difference from the "
+              f"kernel's lanes {lib_err:.3e}")
+        whole_band = rows * m * iters * n_band * (
+            STURM_OPS_PER_STEP + SEGMENT_COMPARE_OPS)
+        print(f"[timing] sturm_segmented {name}: the whole-band recurrence "
+              f"runs {whole_band / ops:.2f}x the steps inside the segments")
+        records.append(_record(
+            f"sturm_segmented[minor bands packed {rows}x{n_band} S={SEG_S} "
+            f"k={K} {name}]", "sturm_segmented",
+            launches=sessions[name]["counts"]["sturm_segmented"],
+            err=sg["err"], ms=ms, plain_ms=sg["plain_ms"], bound_ms=bound,
+            bound_by=by, library_ms=lib_ms,
+            launches_per_update=1))
+
+        vd = variants[name]
+        lam, mu, floor, mask = kd["lam"], kd["mu"], kd["floor"], vd["mask"]
+        ms = _events_ms(torch, lambda: pd_kernel.logabs_sum_masked(
+            lam, mu, mask, floor), warmup=2, reps=10)
+        terms = N * int(mask.sum())
+        nbytes = (B * N + B * N * (N - 1) + B + B * N * N) * elsize \
+            + B * N * (N - 1)
+        bound, by = _bound(terms * PROD_DIFF_OPS_PER_TERM, nbytes, name)
+        records.append(_record(
+            f"logabs_sum_masked[{B}x{N}x{N}x{N - 1} random mask {name}]",
+            "prod_diff_masked",
+            launches=op_counts[name]["logabs_sum_masked"],
+            err=vd["masked_err"], ms=ms, plain_ms=vd["masked_plain_ms"],
+            bound_ms=bound, bound_by=by, library_ms=None))
+
+        lam0, mu0, floor0 = lam[0], mu[0], floor[0]
+        ms = _events_ms(torch, lambda: pd_kernel.logabs_sum_single(
+            lam0, mu0, floor0), warmup=2, reps=20)
+        nbytes = (N + N * (N - 1) + 1 + N * N) * elsize
+        bound, by = _bound(N * N * (N - 1) * PROD_DIFF_OPS_PER_TERM, nbytes,
+                           name)
+        records.append(_record(
+            f"logabs_sum_single[{N}x{N}x{N - 1} {name}]", "prod_diff_single",
+            launches=op_counts[name]["logabs_sum_single"],
+            err=vd["single_err"], ms=ms, plain_ms=vd["single_plain_ms"],
+            bound_ms=bound, bound_by=by, library_ms=None))
+    for r in records:
+        _print_record(r)
+    return records
+
+
+def _segment_library_ms(torch, kd, sg):
+    """``torch.linalg.eigvalsh`` of the dense segment tridiagonals of the
+    first SEG_LIBRARY_ROWS packed rows (minor bands 0 .. SEG_S * rows - 1),
+    the same function as the segmented launch there: its CUDA-event time
+    scaled to all rows, and the largest difference of its top K eigenvalues
+    from the kernel's lanes."""
+    dm, em = kd["dm"], kd["em"]
+    count = SEG_LIBRARY_ROWS * SEG_S
+    t = dm.new_zeros((count, N - 1, N - 1))
+    t.diagonal(dim1=-2, dim2=-1).copy_(dm[:count])
+    t.diagonal(1, dim1=-2, dim2=-1).copy_(em[:count])
+    t.diagonal(-1, dim1=-2, dim2=-1).copy_(em[:count])
+    torch.linalg.eigvalsh(t[:SEG_S])  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    w = torch.linalg.eigvalsh(t)
+    end.record()
+    torch.cuda.synchronize()
+    rows = sg["dm"].shape[0]
+    got = sg["got"][:SEG_LIBRARY_ROWS].reshape(count, K)
+    err = float((w[:, -K:] - got).abs().max())
+    del t, w
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) * rows / SEG_LIBRARY_ROWS, err
+
+
+#: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).
+_SOURCES = {
+    "sturm": ("src/repro_torch/kernels/csrc/sturm.cu",
+              "src/repro/kernels/sturm/kernel.py:197"),
+    "sturm_segmented": ("src/repro_torch/kernels/csrc/sturm_segmented.cu",
+                        "src/repro/kernels/sturm/kernel.py:159"),
+    "prod_diff": ("src/repro_torch/kernels/csrc/prod_diff.cu",
+                  "src/repro/kernels/prod_diff/kernel.py:107"),
+    "prod_diff_masked": ("src/repro_torch/kernels/csrc/prod_diff.cu",
+                         "src/repro/kernels/prod_diff/kernel.py:187"),
+    "prod_diff_single": ("src/repro_torch/kernels/csrc/prod_diff.cu",
+                         "src/repro/kernels/prod_diff/kernel.py:251"),
+}
+
+
 def _record(name, kind, launches, err, ms, plain_ms, bound_ms, bound_by,
-            library_ms):
+            library_ms, **extra):
     """One kernel's entry of the JSON line.  ``launches`` is the wrapper's
-    count over this dtype's main-path run (solve, two topk, two
-    eigenvalues); ``launches_per_solve`` its count in one ``solve``.  The
-    Sturm wrapper's count covers all its roles (spectrum, window, minor
-    stack)."""
-    main_path, per_solve = launches
-    source, replaces, counter = {
-        "sturm": ("src/repro_torch/kernels/csrc/sturm.cu",
-                  "src/repro/kernels/sturm/kernel.py:197", "sturm_bisect"),
-        "prod_diff": ("src/repro_torch/kernels/csrc/prod_diff.cu",
-                      "src/repro/kernels/prod_diff/kernel.py:107",
-                      "logabs_sum"),
-    }[kind]
+    count over this dtype's run of the kernel's path: the main path (solve,
+    two topk, two eigenvalues) for the Sturm and prod-diff kernels, the
+    session for the segmented Sturm kernel, the op entry points for the
+    masked and single-matrix prod-diff kernels.  The Sturm wrapper's count
+    covers all its roles (spectrum, window, minor stack)."""
+    source, replaces = _SOURCES[kind]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_path[counter],
-            "launches_per_solve": per_solve[counter],
+            "replaces": replaces, "launches": launches, **extra,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}

@@ -8,9 +8,16 @@ layout mirrors ``repro``'s: ``linalg`` and ``core`` hold plain PyTorch,
 """
 
 from repro_torch.engine import (  # noqa: F401
+    Rank1Update,
+    SessionConfig,
+    SessionVerifyError,
     SolveResult,
     SolverEngine,
     SolverPlan,
+    SpectralSession,
     TopkResult,
+    VerifyFlags,
     plan_for,
+    verify_topk,
+    verify_topk_host,
 )

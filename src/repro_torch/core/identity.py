@@ -74,15 +74,21 @@ def logabs_numerator(lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 
 def logabs_numerator_clamped(lam: torch.Tensor, mu: torch.Tensor,
-                             floor: torch.Tensor) -> torch.Tensor:
+                             floor: torch.Tensor,
+                             mask: torch.Tensor | None = None) -> torch.Tensor:
     """``sum_k log max(|lam[i] - mu[j, k]|, floor)`` with one ``floor`` per
     matrix: ``lam (..., I)``, ``mu (..., J, K)``, ``floor (...)`` ->
-    ``(..., I, J)``."""
+    ``(..., I, J)``.  With ``mask (..., J, K)`` (bool) a masked cell adds
+    exactly ``log 1 = 0``."""
     fl = floor[..., None, None, None]
+    valid = None if mask is None else mask.unsqueeze(-3)
 
     def block(rows):
-        diff = (rows[..., :, None, None] - mu.unsqueeze(-3)).abs()
-        return torch.log(torch.maximum(diff, fl)).sum(dim=-1)
+        diff = torch.maximum((rows[..., :, None, None] - mu.unsqueeze(-3)).abs(),
+                             fl)
+        if valid is not None:
+            diff = torch.where(valid, diff, 1.0)
+        return torch.log(diff).sum(dim=-1)
 
     return _row_chunks(lam, mu, block)
 

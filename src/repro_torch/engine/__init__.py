@@ -6,6 +6,9 @@
     engine = SolverEngine(plan)                     # device="cuda" by default
     lam, mags = engine.solve(stack)                 # (b, n), (b, n, n)
     top = engine.topk(stack, k=8)                   # (b, k), (b, k, n)
+
+    session = engine.open_session(a, k=8)           # one (n, n) matrix
+    top = engine.update(session, Rank1Update(u, 1)) # A <- A + u u^T
 """
 
 from repro_torch.engine.plan import (  # noqa: F401
@@ -31,4 +34,17 @@ from repro_torch.engine.engine import (  # noqa: F401
     SolveResult,
     SolverEngine,
     TopkResult,
+    topk_program,
+    update_program,
+)
+from repro_torch.engine.session import (  # noqa: F401
+    Rank1Update,
+    SessionConfig,
+    SessionVerifyError,
+    SpectralSession,
+)
+from repro_torch.engine.verify import (  # noqa: F401
+    VerifyFlags,
+    verify_topk,
+    verify_topk_host,
 )

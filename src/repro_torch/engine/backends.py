@@ -6,9 +6,10 @@
                 numerator and denominator sums written as contractions with
                 a ones-vector (``identity.*_dot``).
     cuda        the hand-written kernels: Sturm bisection (full spectrum,
-                k-window and all stacked minor bands, one launch each) and
-                the prod-diff numerator table.  On CPU tensors the kernel
-                wrappers run their plain versions.
+                k-window and all stacked minor bands, one launch each), the
+                segmented Sturm bisection from warm per-lane brackets (the
+                session update) and the prod-diff numerator table.  On CPU
+                tensors the kernel wrappers run their plain versions.
 
 The Householder reduce, the minor-determinant recurrence and the sign
 recurrence are plain PyTorch on every backend, as ``repro`` leaves them to
@@ -22,6 +23,9 @@ Compositions registered here:
     eei_tridiag_windowed  Householder -> k-window Sturm -> minor-determinant
                           components -> recurrence signs + back-transform
 
+Each of them also carries the streaming rank-1 ``update`` chain
+(``_UPDATE_CHAIN``): warm-project reduce -> bracketed Sturm ->
+minor-determinant components -> recurrence signs -> update select.
 ``eei_dense``, ``eei_krylov`` and ``eei_krylov_si`` wait for ROADMAP queue
 1, item 8.
 """
@@ -33,6 +37,7 @@ import torch
 from repro_torch.core import identity, minors
 from repro_torch.core.directions import tridiagonal_signs
 from repro_torch.engine.plan import SolverPlan
+from repro_torch.engine.verify import verify_topk
 from repro_torch.engine.registry import (
     Composition,
     StageLibrary,
@@ -55,6 +60,7 @@ def _common_stages() -> dict:
         "dense_eigenvalues": _dense_eigenvalues,
         "minor_det_components": identity.tridiag_windowed_magnitudes,
         "tridiag_signs": tridiagonal_signs,
+        "verify_topk": verify_topk,
     }
 
 
@@ -68,6 +74,10 @@ def _make_plain(name: str, reduce: str, plan: SolverPlan) -> StageLibrary:
         return sturm.bisect_eigenvalues_windowed(
             d, e, k, largest=largest, n_iter=iters)
 
+    def tridiag_eigenvalues_bracketed(d, e, lo, hi, k, largest):
+        return sturm.bisect_eigenvalues_bracketed(
+            d, e, lo, hi, int(k), largest=bool(largest), n_iter=iters)
+
     def tridiag_minor_spectra(d, e):
         dm, em = minors.all_tridiagonal_minor_bands(d, e)
         return sturm.bisect_eigenvalues(dm, em, n_iter=iters)
@@ -79,6 +89,7 @@ def _make_plain(name: str, reduce: str, plan: SolverPlan) -> StageLibrary:
         **_common_stages(),
         "tridiag_eigenvalues": tridiag_eigenvalues,
         "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
+        "tridiag_eigenvalues_bracketed": tridiag_eigenvalues_bracketed,
         "tridiag_minor_spectra": tridiag_minor_spectra,
         "magnitudes": magnitudes,
     })
@@ -105,6 +116,10 @@ def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
         return sturm_ops.sturm_eigenvalues(
             d, e, n_iter=iters, window=(int(k), bool(largest)))
 
+    def tridiag_eigenvalues_bracketed(d, e, lo, hi, k, largest):
+        return sturm_ops.sturm_eigenvalues_bracketed(
+            d, e, lo, hi, k=int(k), largest=bool(largest), n_iter=iters)
+
     def tridiag_minor_spectra(d, e):
         dm, em = minors.all_tridiagonal_minor_bands(d, e)
         return sturm_ops.sturm_minor_spectra(dm, em, n_iter=iters)
@@ -113,6 +128,7 @@ def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
         **_common_stages(),
         "tridiag_eigenvalues": tridiag_eigenvalues,
         "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
+        "tridiag_eigenvalues_bracketed": tridiag_eigenvalues_bracketed,
         "tridiag_minor_spectra": tridiag_minor_spectra,
         "magnitudes": pd_ops.eei_magnitudes_batched,
     })
@@ -142,6 +158,24 @@ _REC_TRI = StageSig(
     ("vecs",))
 _REC_TRI_SOLVE = StageSig(
     "recover", "tridiag_solve", ("d", "e", "q", "lam", "mags"), ("mags",))
+# The streaming rank-1 update chain, shared by every method: the reduce
+# projects the updated matrix onto the session's retained Ritz basis, the
+# update direction and a few Lanczos extensions and tridiagonalizes the small
+# compression; its q lifts band vectors to the dense basis, so after it the
+# chain is the windowed tridiagonal one, except that the spectrum bisects
+# from interlacing + secular warm brackets and a last stage splits the
+# caller's k-window from the refreshed (basis, theta).
+_REDUCE_WARM = StageSig(
+    "reduce", "warm_project", ("a", "basis", "u"), ("d", "e", "q", "z2"))
+_SPEC_TRI_BRACKETED = StageSig(
+    "spectrum", "tridiag_bracketed", ("a", "d", "e", "theta", "rho", "z2"),
+    ("lam_sel",))
+_REC_UPDATE_SELECT = StageSig(
+    "recover", "update_select", ("lam_sel", "vecs", "idx"),
+    ("lam_sel", "vecs", "basis", "theta"))
+_UPDATE_CHAIN = (
+    _REDUCE_WARM, _SPEC_TRI_BRACKETED, _COMP_DET, _REC_TRI,
+    _REC_UPDATE_SELECT)
 
 
 def register_default_compositions() -> None:
@@ -157,17 +191,20 @@ def register_default_compositions() -> None:
             StageSig("recover", "eigh_solve", ("lam", "v"), ("mags",)),
         ),
         eigenvalues=(_SPEC_DENSE,),
+        update=_UPDATE_CHAIN,
     ))
     register_composition(Composition(
         name="eei_tridiag", method="eei_tridiag", windowed=False,
         topk=(_REDUCE, _SPEC_TRI, _MINORS_TRI, _COMP_SELECT, _REC_TRI),
         solve=(_REDUCE, _SPEC_TRI, _MINORS_TRI, _COMP_FULL, _REC_TRI_SOLVE),
         eigenvalues=(_REDUCE_NOQ, _SPEC_TRI),
+        update=_UPDATE_CHAIN,
     ))
     register_composition(Composition(
         name="eei_tridiag_windowed", method="eei_tridiag", windowed=True,
         topk=(_REDUCE, _SPEC_TRI_WIN, _COMP_DET, _REC_TRI),
         eigenvalues=(_REDUCE_NOQ, _SPEC_TRI_WIN),
+        update=_UPDATE_CHAIN,
     ))
 
 

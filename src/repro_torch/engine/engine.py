@@ -2,12 +2,14 @@
 
 ``SolverEngine(plan, device).solve(a)`` / ``.topk(a, k)`` /
 ``.eigenvalues(a)`` take one symmetric matrix ``(n, n)`` or a stack
-``(b, n, n)`` and run the plan's composition on the plan's backend.  The
-twin of ``repro.engine.engine``: a program resolves ``plan -> composition
--> stage chain`` (``registry``), binds every stage to its builder (the
+``(b, n, n)`` and run the plan's composition on the plan's backend;
+``.open_session(a, k)`` / ``.update(session, u)`` maintain the top-k window
+of one matrix under rank-1 updates (``engine.session``).  The twin of
+``repro.engine.engine``: a program resolves ``plan -> composition -> stage
+chain`` (``registry``), binds every stage to its builder (the
 ``_STAGE_BUILDERS`` table) and threads a state dict through the chain.
-Built programs are cached per ``(plan, kind, k, largest)``; PyTorch runs
-eagerly, so there is nothing to compile.
+Built programs are cached per :class:`ProgramSpec`; PyTorch runs eagerly,
+so there is nothing to compile.
 
 The engine runs on the card unless the caller asks for another device: with
 no ``device`` it takes ``cuda`` and raises where there is none.
@@ -24,6 +26,8 @@ import torch
 from repro_torch.engine import backends as _backends  # noqa: F401 (registers)
 from repro_torch.engine import registry
 from repro_torch.engine.plan import SolverPlan
+from repro_torch.engine.verify import DEFAULT_TOL
+from repro_torch.linalg import interlace
 
 #: Methods the port does not run yet, with the ROADMAP item that brings them.
 NOT_PORTED = {
@@ -52,11 +56,21 @@ class TopkResult(NamedTuple):
 
 
 class ProgramSpec(NamedTuple):
-    """Static description of one program: kind and window."""
+    """Static description of one program: kind, window and verify.
 
-    kind: str  # solve | topk | eigenvalues
+    ``verify=True`` appends the backend's ``verify`` stage: a topk program
+    then returns ``(TopkResult, VerifyFlags)``.  ``update`` programs always
+    verify, and carry the session's retained window ``m_keep`` and the
+    number ``ext`` of augmentation directions (``u`` plus Lanczos
+    extensions) of the warm-project reduce.
+    """
+
+    kind: str  # solve | topk | eigenvalues | update
     k: int = 0  # 0 -> no window (full spectrum)
     largest: bool = True
+    verify: bool = False
+    m_keep: int = 0
+    ext: int = 0
 
 
 def _renormalize(vecs: torch.Tensor) -> torch.Tensor:
@@ -164,6 +178,120 @@ def _b_tridiag_solve(lib, spec):
     return fn
 
 
+def _b_verify_topk(lib, spec):
+    return lambda st: {"flags": lib.verify_topk(
+        st["a"], st["lam_sel"], st["vecs"])}
+
+
+# -- streaming rank-1 update stages -------------------------------------------
+
+
+def _append_ortho(s_rows: torch.Tensor, v: torch.Tensor,
+                  seed: int) -> torch.Tensor:
+    """One more orthonormal row onto ``s_rows (..., r, n)`` (classical
+    Gram-Schmidt, twice); where ``v`` already lies in the span, a fixed
+    direction ``cos(arange(n) * (seed + 2) + 0.1)`` takes its place."""
+    n = s_rows.shape[-1]
+
+    def proj_out(x):
+        for _ in range(2):
+            c = torch.einsum("...rn,...n->...r", s_rows, x)
+            x = x - torch.einsum("...r,...rn->...n", c, s_rows)
+        return x
+
+    v = proj_out(v)
+    nrm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    fb = torch.cos(torch.arange(n, dtype=s_rows.dtype, device=s_rows.device)
+                   * (seed + 2) + 0.1)
+    fb = proj_out(fb.expand(v.shape))
+    fb_nrm = torch.linalg.vector_norm(fb, dim=-1, keepdim=True)
+    v = torch.where(nrm > 1e-6, v / torch.clamp(nrm, min=1e-30),
+                    fb / torch.clamp(fb_nrm, min=1e-30))
+    return torch.cat([s_rows, v.unsqueeze(-2)], dim=-2)
+
+
+def _b_warm_project(lib, spec):
+    """Augmented-subspace reduce of the ``update`` kind.
+
+    Projects the updated stack onto ``S = [basis; u; A'-Krylov ext]``: the
+    retained Ritz rows, the unit update direction and ``spec.ext - 1``
+    Lanczos extensions.  The compression ``S A' S^T`` (``(b, m', m')``) goes
+    through the backend's own Householder reduce, and ``q = S^T q_small``
+    lifts band vectors straight to the dense basis.  O(m' n^2) instead of a
+    from-scratch O(n^3).
+    """
+    n_aug = spec.ext
+
+    def fn(st):
+        a, basis, u = st["a"], st["basis"], st["u"]
+        m = basis.shape[-2]
+        # Re-orthonormalize the retained rows (orthogonal only to fp
+        # accuracy); QR of a near-orthonormal frame is cheap.
+        qb, _ = torch.linalg.qr(basis.transpose(-1, -2))
+        s_rows = qb.transpose(-1, -2)  # (b, m, n)
+        v = u
+        for j in range(n_aug):
+            s_rows = _append_ortho(s_rows, v, j)
+            v = torch.einsum("...nm,...m->...n", a, s_rows[..., -1, :])
+        t = torch.einsum("...rn,...nm->...rm", s_rows, a)
+        band = torch.einsum("...rm,...sm->...rs", t, s_rows)
+        band = 0.5 * (band + band.transpose(-1, -2))
+        d, e, qs = lib.tridiagonalize(band, True)
+        q_eff = torch.einsum("...rn,...rt->...nt", s_rows, qs)
+        # Secular weights: the coefficients of u on the retained frame.
+        z = torch.einsum("...rn,...n->...r", s_rows[..., :m, :], u)
+        return {"d": d, "e": e, "q": q_eff, "z2": z * z}
+
+    return fn
+
+
+def _b_tridiag_bracketed(lib, spec):
+    """Warm-bracket spectrum stage of the ``update`` kind.
+
+    Lane brackets come from rank-1 interlacing + Weyl on the cached Ritz
+    values, widened by a slack of what verify lets the cached spectrum
+    drift, then tightened on one side by the secular refinement (a lower
+    bound for a ``largest`` window, an upper one for ``smallest``).  The
+    backend's bracketed bisection validates every lane and falls back to
+    Gershgorin where a bracket cannot prove containment.
+    """
+    k_lanes, largest = spec.m_keep, spec.largest
+
+    def fn(st):
+        theta, rho, z2, a = st["theta"], st["rho"], st["z2"], st["a"]
+        scale = torch.sqrt(torch.sum(a * a, dim=(-2, -1)))  # ||A'||_F
+        slack = (8.0 * DEFAULT_TOL) * scale
+        lo, hi = interlace.rank1_update_brackets(
+            theta, rho, drift_bound=slack.unsqueeze(-1))
+        slo, shi = interlace.secular_bracket_refine(theta, z2, rho, lo, hi)
+        sec_pad = (1e-5 * scale).unsqueeze(-1)
+        if largest:
+            lo = torch.maximum(lo, slo - sec_pad)
+        else:
+            hi = torch.minimum(hi, shi + sec_pad)
+        return {"lam_sel": lib.tridiag_eigenvalues_bracketed(
+            st["d"], st["e"], lo, hi, k_lanes, largest)}
+
+    return fn
+
+
+def _b_update_select(lib, spec):
+    """Split the caller's k-window out of the refreshed m_keep-window; the
+    whole window becomes the session's next ``(basis, theta)``."""
+    k, largest = spec.k, spec.largest
+
+    def fn(st):
+        lam, vecs = st["lam_sel"], st["vecs"]  # (b, m_keep[, n]) ascending
+        if largest:
+            lam_k, vecs_k = lam[..., -k:], vecs[..., -k:, :]
+        else:
+            lam_k, vecs_k = lam[..., :k], vecs[..., :k, :]
+        return {"lam_sel": lam_k, "vecs": vecs_k,
+                "basis": vecs, "theta": lam}
+
+    return fn
+
+
 _STAGE_BUILDERS = {
     ("reduce", "householder"): _b_householder,
     ("spectrum", "eigh"): _b_eigh,
@@ -178,7 +306,17 @@ _STAGE_BUILDERS = {
     ("recover", "eigh_solve"): _b_eigh_solve,
     ("recover", "tridiag_signs"): _b_tridiag_signs,
     ("recover", "tridiag_solve"): _b_tridiag_solve,
+    ("reduce", "warm_project"): _b_warm_project,
+    ("spectrum", "tridiag_bracketed"): _b_tridiag_bracketed,
+    ("recover", "update_select"): _b_update_select,
+    ("verify", "verify_topk"): _b_verify_topk,
 }
+
+#: The verify stage the engine appends to a chain (not part of any
+#: composition, so every method and backend gets it).
+_VERIFY_SIG = registry.StageSig(
+    role="verify", name="verify_topk",
+    requires=("a", "lam_sel", "vecs"), provides=("flags",))
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +332,7 @@ def _resolve_chain(plan: SolverPlan, spec: ProgramSpec):
     windowed chain (index-targeted bisection).  A composition without the
     kind's chain falls back to the method's full composition.
     """
-    if spec.kind == "topk":
+    if spec.kind in ("topk", "update"):
         windowed = plan.spectrum == "windowed"
     else:
         windowed = spec.kind == "eigenvalues" and spec.k > 0
@@ -220,6 +358,11 @@ class Program:
     def __init__(self, plan: SolverPlan, spec: ProgramSpec):
         lib = registry.get_backend(plan)
         _, chain = _resolve_chain(plan, spec)
+        if spec.verify:
+            if spec.kind not in ("topk", "update"):
+                raise ValueError(
+                    "verify is only supported for topk and update programs")
+            chain = chain + (_VERIFY_SIG,)
         self.spec = spec
         self.stages = tuple(
             (sig, _STAGE_BUILDERS[(sig.role, sig.name)](lib, spec))
@@ -235,7 +378,8 @@ class Program:
 
     def result(self, state: dict):
         if self.spec.kind == "topk":
-            return TopkResult(state["lam_sel"], state["vecs"])
+            result = TopkResult(state["lam_sel"], state["vecs"])
+            return (result, state["flags"]) if self.spec.verify else result
         if self.spec.kind == "solve":
             return SolveResult(state["lam"], state["mags"])
         if "lam_sel" in state:  # windowed eigenvalue chain
@@ -243,17 +387,60 @@ class Program:
         # A windowed query on a full chain (eigh): slice the spectrum.
         return state["lam"][..., state["idx"]] if self.spec.k else state["lam"]
 
-    def __call__(self, a: torch.Tensor):
-        state = self.initial_state(a)
+    def __call__(self, *args):
+        state = self.initial_state(*args)
         for _, fn in self.stages:
             state.update(fn(state))
         return self.result(state)
 
 
+class UpdateProgram(Program):
+    """The streaming rank-1 ``update`` program.
+
+    ``prog(a_prev, basis, theta, u, rho)`` applies ``a = a_prev + rho u
+    u^T`` (``u (b, n)`` unit, ``rho (b,)`` signed), walks the method's
+    ``update`` chain and the verify stage, and returns ``(TopkResult,
+    VerifyFlags, a, basis', theta')``: the trailing state is what the
+    session keeps for its next update.
+    """
+
+    def initial_state(self, a_prev, basis, theta, u, rho) -> dict:
+        a = a_prev + rho[..., None, None] * u[..., :, None] * u[..., None, :]
+        idx = _window_idx(a.shape[-1], self.spec.k, self.spec.largest,
+                          a.device)
+        return {"a": a, "basis": basis, "theta": theta, "u": u, "rho": rho,
+                "idx": idx}
+
+    def result(self, state: dict):
+        return (TopkResult(state["lam_sel"], state["vecs"]), state["flags"],
+                state["a"], state["basis"], state["theta"])
+
+
 @functools.lru_cache(maxsize=None)
 def program(plan: SolverPlan, spec: ProgramSpec) -> Program:
     """The built program for one ``(plan, spec)``, cached."""
+    if spec.kind == "update":
+        if not spec.verify:
+            raise ValueError("update programs always verify")
+        return UpdateProgram(plan, spec)
     return Program(plan, spec)
+
+
+def topk_program(plan: SolverPlan, k: int, largest: bool,
+                 verify: bool = False) -> Program:
+    """The batched top-k program for one ``(plan, k, largest)``; with
+    ``verify=True`` it returns ``(TopkResult, VerifyFlags)``, its
+    ``TopkResult`` bitwise equal to the plain program's."""
+    return program(plan, ProgramSpec("topk", int(k), bool(largest),
+                                     bool(verify)))
+
+
+def update_program(plan: SolverPlan, k: int, largest: bool, m_keep: int,
+                   ext: int) -> UpdateProgram:
+    """The rank-1 update program for one session geometry: window ``k``,
+    retained window ``m_keep`` and ``ext`` augmentation directions."""
+    return program(plan, ProgramSpec("update", int(k), bool(largest), True,
+                                     int(m_keep), int(ext)))
 
 
 def _resolve_device(device) -> torch.device:
@@ -316,6 +503,26 @@ class SolverEngine:
         spec = ProgramSpec("eigenvalues", int(k or 0),
                            bool(largest) if k else True)
         return self._run(program(self.plan, spec), a)
+
+    def open_session(self, a, k: int, largest: bool = True, config=None):
+        """Open a :class:`~repro_torch.engine.session.SpectralSession` on
+        one ``(n, n)`` matrix: a full solve seeds the retained Ritz window,
+        and :meth:`update` maintains it under rank-1 drift."""
+        from repro_torch.engine import session as session_mod
+
+        return session_mod.open_session(self, a, int(k), bool(largest),
+                                        config)
+
+    def update(self, session, delta):
+        """Apply ``A <- A + sign * u u^T`` to a session and return the
+        refreshed :class:`TopkResult`.  ``delta`` is ``u``, ``(u, sign)``, a
+        :class:`~repro_torch.engine.session.Rank1Update` or a sequence of
+        them (applied in turn).  The warm path runs unless the session's
+        drift monitor (accumulated ``|rho|``, verify flags, update cadence)
+        asks for a full re-solve."""
+        from repro_torch.engine import session as session_mod
+
+        return session_mod.apply_update(self, session, delta)
 
     def _run(self, prog: Program, a):
         a = torch.as_tensor(a, device=self.device)

@@ -1,18 +1,23 @@
 """Stage-graph registry: the single dispatch point of the EEI pipeline.
 
-The twin of ``repro.engine.registry`` for the three program kinds the port
-runs (``solve``, ``topk``, ``eigenvalues``):
+The twin of ``repro.engine.registry`` for the four program kinds the port
+runs (``solve``, ``topk``, ``eigenvalues``, ``update``):
 
 * a **stage library** per backend (:class:`StageLibrary`), a named bundle
   of batched stage implementations;
 * **compositions** (:class:`Composition`): named stage chains
   ``reduce -> spectrum -> [minor_spectra] -> components -> recover`` per
   program kind, each stage declaring the state keys it ``requires`` and
-  ``provides``, validated at registration.
+  ``provides``, validated at registration.  The engine appends the
+  ``verify`` role to a chain when the caller asks for verified output.
 
 State keys: ``a (b, n, n)``, ``idx (k,)``, ``d, e, q`` (reduce), ``lam
 (b, n)``, ``lam_sel (b, k)``, ``mu (b, n, n-1)``, ``mags (b, n, n)``,
-``mag_sel (b, k, n)``, ``v (b, n, n)`` (eigh only), ``vecs (b, k, n)``.
+``mag_sel (b, k, n)``, ``v (b, n, n)`` (eigh only), ``vecs (b, k, n)``,
+``flags`` (verify); and for ``update``: ``basis (b, m, n)``, ``theta (b,
+m)`` (the session's retained Ritz pairs), ``u (b, n)`` (the unit update
+direction), ``rho (b,)`` (its signed squared norm) and ``z2 (b, m)`` (its
+squared coefficients on the retained frame).
 """
 
 from __future__ import annotations
@@ -23,19 +28,25 @@ from typing import Callable, Dict, Optional, Tuple
 from repro_torch.engine.plan import SolverPlan
 
 #: Stage roles in pipeline order; a chain may skip roles, not reorder them.
-STAGE_ROLES = ("reduce", "spectrum", "minor_spectra", "components", "recover")
+#: ``verify`` consumes the final state and provides per-matrix flags.
+STAGE_ROLES = (
+    "reduce", "spectrum", "minor_spectra", "components", "recover", "verify")
 
-PROGRAM_KINDS = ("solve", "topk", "eigenvalues")
+PROGRAM_KINDS = ("solve", "topk", "eigenvalues", "update")
 _INITIAL_KEYS = {
     "solve": frozenset({"a"}),
     "topk": frozenset({"a", "idx"}),
     "eigenvalues": frozenset({"a", "idx"}),
+    # ``a`` is the already-updated stack.
+    "update": frozenset({"a", "basis", "theta", "u", "rho", "idx"}),
 }
 _FINAL_KEYS = {
     "solve": ({"lam", "mags"},),
     "topk": ({"lam_sel", "vecs"},),
     # windowed eigenvalue chains end at the window, full ones at the spectrum
     "eigenvalues": ({"lam"}, {"lam_sel"}),
+    # the refreshed session state rides out with the answer
+    "update": ({"lam_sel", "vecs", "basis", "theta"},),
 }
 
 
@@ -59,8 +70,9 @@ class StageSig:
 class Composition:
     """A named, validated stage chain per program kind.
 
-    ``solve`` / ``eigenvalues`` may be ``None``: a windowed composition has
-    no full-table solve, and the engine then takes the method's full one.
+    ``solve`` / ``eigenvalues`` / ``update`` may be ``None``: a windowed
+    composition has no full-table solve, and the engine then takes the
+    method's full one.
     """
 
     name: str
@@ -69,6 +81,7 @@ class Composition:
     topk: Tuple[StageSig, ...]
     solve: Optional[Tuple[StageSig, ...]] = None
     eigenvalues: Optional[Tuple[StageSig, ...]] = None
+    update: Optional[Tuple[StageSig, ...]] = None
 
     def chain(self, kind: str) -> Optional[Tuple[StageSig, ...]]:
         if kind not in PROGRAM_KINDS:

@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sturm.cu", "prod_diff.cu", "runtime.cu")
+SOURCES = ("sturm.cu", "sturm_segmented.cu", "prod_diff.cu", "runtime.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = (
@@ -37,8 +37,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sturm_bisect_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sturm_bisect_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sturm_segmented_f32": (_P,) * 9 + (_I, _I, _I, _I, _P),
+    "sturm_segmented_f64": (_P,) * 9 + (_I, _I, _I, _I, _P),
     "logabs_sum_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "logabs_sum_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "logabs_sum_masked_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "logabs_sum_masked_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "logabs_sum_single_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "logabs_sum_single_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -143,3 +149,17 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code:
         text = lib.repro_cuda_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: error {code} ({text})")
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` (a tensor passes its
+    data pointer, an int itself) and ``device``'s current stream; raise if
+    the launch was refused.  The kernel runs asynchronously."""
+    import torch
+
+    lib = library()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, name)(*ptrs, stream)
+    check(lib, name, code)

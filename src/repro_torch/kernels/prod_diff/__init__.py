@@ -1,2 +1,2 @@
-"""The prod-diff log-sum kernel: ``kernel`` (CUDA wrapper and plain
-version), ``ops`` (public entry points) and ``ref`` (pure-PyTorch oracle)."""
+"""The prod-diff log-sum kernels: ``kernel`` (CUDA wrappers and plain
+versions), ``ops`` (public entry points) and ``ref`` (pure-PyTorch oracle)."""

@@ -1,9 +1,17 @@
-"""Log-space difference sums: the CUDA kernel's wrapper and its plain version.
+"""Log-space difference sums: the CUDA kernels' wrappers and plain versions.
 
-:func:`logabs_sum` launches ``csrc/prod_diff.cu`` (the port of the TPU
-kernel ``repro.kernels.prod_diff.kernel.logabs_sum_batched_padded``) for
-CUDA tensors and runs :func:`logabs_sum_plain` for CPU tensors; any other
-device raises.  ``logabs_sum.launches`` counts kernel launches.
+Each wrapper launches its kernel of ``csrc/prod_diff.cu`` for CUDA tensors
+and runs its plain version for CPU tensors; any other device raises.  Each
+wrapper's ``.launches`` counts its kernel launches.
+
+* :func:`logabs_sum`, the port of the TPU kernel
+  ``repro.kernels.prod_diff.kernel.logabs_sum_batched_padded``: a stack,
+  one floor per matrix;
+* :func:`logabs_sum_masked`, the port of
+  ``logabs_sum_batched_masked_padded``: the same with a validity mask per
+  matrix, where a masked cell adds exactly 0;
+* :func:`logabs_sum_single`, the port of ``logabs_sum_padded``: one matrix
+  and one scalar floor.
 """
 
 from __future__ import annotations
@@ -13,7 +21,11 @@ import torch
 from repro_torch.core.identity import logabs_numerator_clamped
 from repro_torch.kernels import build
 
-_ENTRY = {torch.float32: "logabs_sum_f32", torch.float64: "logabs_sum_f64"}
+_DTYPES = (torch.float32, torch.float64)
+
+
+def _entry(name: str, dtype: torch.dtype) -> str:
+    return f"{name}_{'f32' if dtype == torch.float32 else 'f64'}"
 
 
 def logabs_sum_plain(lam: torch.Tensor, mu: torch.Tensor,
@@ -23,19 +35,67 @@ def logabs_sum_plain(lam: torch.Tensor, mu: torch.Tensor,
     return logabs_numerator_clamped(lam, mu, floor)
 
 
-def _check(lam, mu, floor):
-    if lam.dtype not in _ENTRY:
-        raise TypeError(f"logabs_sum takes float32 or float64, got {lam.dtype}")
-    if lam.ndim != 2 or mu.ndim != 3 or mu.shape[0] != lam.shape[0]:
-        raise ValueError(
-            f"expected lam (B, I) and mu (B, J, K), got {tuple(lam.shape)} "
-            f"and {tuple(mu.shape)}")
-    if tuple(floor.shape) != (lam.shape[0],):
-        raise ValueError(f"floor must be ({lam.shape[0]},), got "
+def logabs_sum_masked_plain(lam: torch.Tensor, mu: torch.Tensor,
+                            mask: torch.Tensor,
+                            floor: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the masked kernel, in row chunks."""
+    return logabs_numerator_clamped(lam, mu, floor, mask=mask)
+
+
+#: Plain version of the single-matrix kernel: the same arithmetic, with no
+#: batch axis.
+logabs_sum_single_plain = logabs_sum_plain
+
+
+def _check(what, lam, mu, floor, batched=True, mask=None):
+    if lam.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or float64, got {lam.dtype}")
+    lead = lam.shape[:1] if batched else ()
+    if (lam.ndim != len(lead) + 1 or mu.ndim != len(lead) + 2
+            or mu.shape[:len(lead)] != lead):
+        want = "lam (B, I) and mu (B, J, K)" if batched else \
+            "lam (I,) and mu (J, K)"
+        raise ValueError(f"{what}: expected {want}, got {tuple(lam.shape)} "
+                         f"and {tuple(mu.shape)}")
+    if tuple(floor.shape) != tuple(lead):
+        raise ValueError(f"floor must be {tuple(lead)}, got "
                          f"{tuple(floor.shape)}")
     for name, t in (("mu", mu), ("floor", floor)):
         if t.dtype != lam.dtype or t.device != lam.device:
             raise TypeError(f"{name} must be {lam.dtype} on {lam.device}")
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.device != lam.device:
+            raise TypeError(f"mask must be torch.bool on {lam.device}")
+        if mask.shape != mu.shape:
+            raise ValueError(f"mask must be {tuple(mu.shape)}, got "
+                             f"{tuple(mask.shape)}")
+
+
+def _dispatch(wrapper, plain, args):
+    """Run ``plain(*args)`` on CPU tensors; on CUDA tensors launch
+    ``wrapper``'s kernel (named after it) and count the launch.  ``args``
+    starts with ``lam (..., I)`` and ``mu (..., J, K)``; the output is
+    ``(..., I, J)``."""
+    what = wrapper.__name__
+    lam, mu = args[0], args[1]
+    if lam.device.type == "cpu":
+        return plain(*args)
+    if lam.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {lam.device}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError(f"{what} needs contiguous operands")
+    lead = tuple(lam.shape[:-1])
+    if lead and lead[0] > 65535:
+        raise ValueError(f"{what} takes at most 65535 matrices, got "
+                         f"{lead[0]}")
+    out = torch.empty(lead + (lam.shape[-1], mu.shape[-2]), dtype=lam.dtype,
+                      device=lam.device)
+    if out.numel() == 0:
+        return out
+    build.launch(_entry(what, lam.dtype), lam.device, *args, out, *lead,
+                 lam.shape[-1], *mu.shape[-2:])
+    wrapper.launches += 1
+    return out
 
 
 def logabs_sum(lam: torch.Tensor, mu: torch.Tensor,
@@ -45,31 +105,38 @@ def logabs_sum(lam: torch.Tensor, mu: torch.Tensor,
     ``lam (B, I)``, ``mu (B, J, K)``, ``floor (B,)``; returns ``(B, I, J)``.
     The ``k`` terms are added in order, whatever ``I`` is.
     """
-    _check(lam, mu, floor)
-    if lam.device.type == "cpu":
-        return logabs_sum_plain(lam, mu, floor)
-    if lam.device.type != "cuda":
-        raise ValueError(f"logabs_sum runs on cpu or cuda, not {lam.device}")
-    if not (lam.is_contiguous() and mu.is_contiguous()
-            and floor.is_contiguous()):
-        raise ValueError("logabs_sum needs contiguous lam, mu and floor")
-    b_n, i_n = lam.shape
-    _, j_n, k_n = mu.shape
-    if b_n > 65535:
-        raise ValueError(f"logabs_sum takes at most 65535 matrices, got {b_n}")
-    out = torch.empty((b_n, i_n, j_n), dtype=lam.dtype, device=lam.device)
-    if out.numel() == 0:
-        return out
-    lib = build.library()
-    name = _ENTRY[lam.dtype]
-    with torch.cuda.device(lam.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, name)(
-            lam.data_ptr(), mu.data_ptr(), floor.data_ptr(), out.data_ptr(),
-            b_n, i_n, j_n, k_n, stream)
-    build.check(lib, name, code)
-    logabs_sum.launches += 1
-    return out
+    _check("logabs_sum", lam, mu, floor)
+    return _dispatch(logabs_sum, logabs_sum_plain, (lam, mu, floor))
 
 
 logabs_sum.launches = 0
+
+
+def logabs_sum_masked(lam: torch.Tensor, mu: torch.Tensor,
+                      mask: torch.Tensor,
+                      floor: torch.Tensor) -> torch.Tensor:
+    """``out[b, i, j] = sum_k [mask[b, j, k]] log(max(|lam[b, i] - mu[b, j,
+    k]|, floor[b]))``: a masked cell adds exactly 0.
+
+    ``lam (B, I)``, ``mu (B, J, K)``, ``mask (B, J, K)`` bool, ``floor
+    (B,)``; returns ``(B, I, J)``.  The ``k`` terms are added in order.
+    """
+    _check("logabs_sum_masked", lam, mu, floor, mask=mask)
+    return _dispatch(logabs_sum_masked, logabs_sum_masked_plain,
+                     (lam, mu, mask, floor))
+
+
+logabs_sum_masked.launches = 0
+
+
+def logabs_sum_single(lam: torch.Tensor, mu: torch.Tensor,
+                      floor: torch.Tensor) -> torch.Tensor:
+    """``out[i, j] = sum_k log(max(|lam[i] - mu[j, k]|, floor))`` for one
+    matrix: ``lam (I,)``, ``mu (J, K)``, ``floor`` a 0-d tensor; returns
+    ``(I, J)``.  The ``k`` terms are added in order."""
+    _check("logabs_sum_single", lam, mu, floor, batched=False)
+    return _dispatch(logabs_sum_single, logabs_sum_single_plain,
+                     (lam, mu, floor))
+
+
+logabs_sum_single.launches = 0

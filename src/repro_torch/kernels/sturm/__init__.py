@@ -1,2 +1,2 @@
-"""The Sturm bisection kernel: ``kernel`` (CUDA wrapper and plain version),
-``ops`` (public entry points) and ``ref`` (pure-PyTorch oracle)."""
+"""The Sturm bisection kernels: ``kernel`` (CUDA wrappers and plain
+versions), ``ops`` (public entry points) and ``ref`` (pure-PyTorch oracle)."""

@@ -12,12 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import SolverEngine, SolverPlan
+from repro_torch import Rank1Update, SolverEngine, SolverPlan
 from repro_torch.core import minors
 from repro_torch.kernels.prod_diff import kernel as pd_kernel
 from repro_torch.kernels.prod_diff import ops as pd_ops
 from repro_torch.kernels.sturm import kernel as st_kernel
 from repro_torch.kernels.sturm import ops as st_ops
+from repro_torch.linalg import interlace
 from repro_torch.linalg.sturm import _pivmin, gershgorin_bounds
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +108,127 @@ def test_windowed_prod_diff_rows_are_bitwise_full_rows(cuda_device, dtype):
     idx = torch.arange(44, 50, device=cuda_device)
     assert torch.equal(pd_ops.eei_magnitudes_windowed(lam, mu, idx),
                        pd_ops.eei_magnitudes_batched(lam, mu)[:, idx])
+
+
+def _packed(d, e, seg):
+    """Pack ``b`` bands of length ``n`` ``seg`` to a row, with zero
+    off-diagonals at the junctions: ``(b / seg, seg * n)`` bands and the
+    segment layout."""
+    b, n = d.shape
+    rows = b // seg
+    dp = d.reshape(rows, seg * n).contiguous()
+    ep = torch.zeros((rows, seg, n), dtype=e.dtype, device=e.device)
+    ep[:, :, :n - 1] = e.reshape(rows, seg, n - 1)
+    ep = ep.reshape(rows, seg * n)[:, :-1].contiguous()
+    off = (torch.arange(seg, dtype=torch.int32, device=d.device) * n
+           ).expand(rows, seg)
+    length = torch.full((rows, seg), n, dtype=torch.int32, device=d.device)
+    return dp, ep, off, length
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("largest", [True, False])
+def test_segmented_kernel_is_bitwise_its_plain_version(cuda_device, largest,
+                                                       dtype):
+    d, e = _bands(7, 8, 45, dtype, cuda_device)
+    dp, ep, off, length = _packed(d, e, 4)
+    before = st_kernel.sturm_segmented.launches
+    got = st_ops.sturm_eigenvalues_segmented(dp, ep, off, length, k=5,
+                                             largest=largest)
+    assert st_kernel.sturm_segmented.launches == before + 1
+    ref = st_ops.sturm_eigenvalues_segmented(
+        dp.cpu(), ep.cpu(), off.cpu(), length.cpu(), k=5, largest=largest)
+    assert torch.equal(got.cpu(), ref)
+    # Each segment's window is the window of its own band (kernel 1).
+    win = st_ops.sturm_eigenvalues(d, e, window=(5, largest))
+    _close(got.reshape(8, 5), win, TOL[dtype]["sturm"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_full_band_lanes_equal_the_sturm_window(cuda_device,
+                                                         dtype):
+    d, e = _bands(3, 5, 130, dtype, cuda_device)
+    k = 9
+    lo, hi = gershgorin_bounds(d, e)
+    lanes = lambda x: x.unsqueeze(-1).expand(5, k).contiguous()  # noqa: E731
+    targets = torch.arange(130 - k, 130, dtype=torch.int32,
+                           device=cuda_device).expand(5, k).contiguous()
+    got = st_kernel.sturm_segmented(
+        d, e, lanes(lo), lanes(hi), lanes(_pivmin(d, e)),
+        torch.zeros_like(targets), torch.full_like(targets, 130), targets,
+        n_iter=64 if dtype == torch.float64 else 32)
+    assert torch.equal(got, st_ops.sturm_eigenvalues(d, e, window=(k, True)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bracketed_kernel_with_stale_brackets(cuda_device, dtype):
+    d, e = _bands(9, 4, 60, dtype, cuda_device)
+    lam = st_ops.sturm_eigenvalues(d, e, window=(6, True))
+    lo, hi = interlace.rank1_update_brackets(lam, 0.0)
+    lo[:2] += 5.0  # stale: these lanes fall back to Gershgorin
+    hi[:2] += 5.0
+    got = st_ops.sturm_eigenvalues_bracketed(d, e, lo, hi, k=6, largest=True)
+    ref = st_ops.sturm_eigenvalues_bracketed(d.cpu(), e.cpu(), lo.cpu(),
+                                             hi.cpu(), k=6, largest=True)
+    assert torch.equal(got.cpu(), ref)
+    _close(got, lam, TOL[dtype]["sturm"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_masked_and_single_prod_diff_kernels_match_plain(cuda_device, dtype):
+    rng = np.random.default_rng(11)
+    lam = torch.as_tensor(rng.standard_normal((3, 40)), dtype=dtype,
+                          device=cuda_device)
+    mu = torch.as_tensor(rng.standard_normal((3, 70, 69)), dtype=dtype,
+                         device=cuda_device)
+    mask = torch.as_tensor(rng.random((3, 70, 69)) > 0.3, device=cuda_device)
+    floor = torch.full((3,), 1e-6, dtype=dtype, device=cuda_device)
+    before = (pd_kernel.logabs_sum_masked.launches,
+              pd_kernel.logabs_sum_single.launches)
+    got = pd_kernel.logabs_sum_masked(lam, mu, mask, floor)
+    _close(got, pd_kernel.logabs_sum_masked_plain(lam, mu, mask, floor),
+           TOL[dtype]["prod_diff"])
+    one = pd_kernel.logabs_sum_single(lam[0], mu[0], floor[0])
+    _close(one, pd_kernel.logabs_sum_single_plain(lam[0], mu[0], floor[0]),
+           TOL[dtype]["prod_diff"])
+    assert (pd_kernel.logabs_sum_masked.launches,
+            pd_kernel.logabs_sum_single.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    # Masked cells add exactly 0: an all-valid mask is the unmasked kernel,
+    # and the single-matrix kernel is the batched one's first matrix.
+    assert torch.equal(
+        pd_kernel.logabs_sum_masked(lam, mu, torch.ones_like(mask), floor),
+        pd_kernel.logabs_sum(lam, mu, floor))
+    assert torch.equal(one, pd_kernel.logabs_sum(lam, mu, floor)[0])
+
+
+def test_session_on_card_matches_session_on_cpu(cuda_device):
+    rng = np.random.default_rng(2)
+    n, k = 40, 4
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    us = [rng.standard_normal(n) * 0.2 for _ in range(4)]
+    plan = SolverPlan(method="eei_tridiag", backend="cuda",
+                      precision="float64")
+    results = {}
+    for device in ("cuda", "cpu"):
+        engine = SolverEngine(plan, device=device)
+        session = engine.open_session(a, k)
+        before = st_kernel.sturm_segmented.launches
+        results[device] = [engine.update(session, Rank1Update(u, 1))
+                           for u in us]
+        stats = session.stats()
+        results[device + " stats"] = {key: stats[key] for key in (
+            "fast_updates", "full_resolves", "resolves_by_cause")}
+        launched = st_kernel.sturm_segmented.launches - before
+        assert launched == (session.stats()["fast_updates"]
+                            if device == "cuda" else 0)
+    assert results["cuda stats"] == results["cpu stats"]
+    assert results["cuda stats"]["fast_updates"] >= 1
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        _close(got.eigenvalues.cpu(), ref.eigenvalues, 1e-10)
+        dots = (got.vectors.cpu() * ref.vectors).sum(-1).abs()
+        assert float(dots.min()) >= 1 - 1e-6
 
 
 def test_engine_on_card_matches_engine_on_cpu(cuda_device):

@@ -1,7 +1,10 @@
 """repro_torch kernels against repro's Pallas kernels (interpret mode).
 
 On the CPU each kernel wrapper runs its plain PyTorch version; the same
-seeded numpy inputs go through ``repro`` and the port.  Also: the
+seeded numpy inputs go through ``repro`` and the port: the Sturm kernel
+(full, windowed, minor stacks), the segmented Sturm kernel (packed segments
+and warm brackets), and the three prod-diff kernels (batched, masked,
+single matrix).  Also: the
 ``blocks`` helpers (the property tests of ``tests/test_kernels.py``
 mirrored), the two bitwise contracts inside the port, and the wrappers'
 refusal of devices they do not serve.
@@ -149,6 +152,74 @@ def test_sturm_decoupled_and_degenerate():
     assert_close(got, ref, "sturm", "float64")
 
 
+def _packed_bands(seed, lengths, dtype):
+    """Seeded bands of the given lengths packed one after another on each
+    row, with zero off-diagonals at the junctions and a free tail; returns
+    ``d (B, N)``, ``e (B, N-1)``, ``seg_off``, ``seg_len`` (int32)."""
+    rng = np.random.default_rng(seed)
+    b_n = len(lengths)
+    n = max(sum(row) for row in lengths) + 3
+    d = rng.standard_normal((b_n, n)).astype(dtype)
+    e = rng.standard_normal((b_n, n - 1)).astype(dtype)
+    off = np.zeros((b_n, len(lengths[0])), np.int32)
+    for r, row in enumerate(lengths):
+        off[r] = np.concatenate([[0], np.cumsum(row)[:-1]])
+        for o, ln in zip(off[r], row):
+            if 0 < o + ln <= n - 1:
+                e[r, o + ln - 1] = 0.0
+    return d, e, off, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("largest", [True, False])
+def test_sturm_segmented_matches_repro(largest, dtype):
+    """Ragged segments, a segment shorter than the window (clamped lanes)
+    and an empty slot."""
+    d, e, off, length = _packed_bands(3, [[7, 5, 9], [11, 2, 0]], dtype)
+    k = 3
+    got = st_ops.sturm_eigenvalues_segmented(t(d), t(e), t(off), t(length),
+                                             k=k, largest=largest)
+    assert got.shape == (2, 3, k) and got.dtype == t(d).dtype
+    ref = r_st.sturm_eigenvalues_segmented(
+        jnp.asarray(d), jnp.asarray(e), jnp.asarray(off), jnp.asarray(length),
+        k=k, largest=largest)
+    assert_close(got, ref, "sturm", dtype)
+    # A full segment's lanes are the window of its own band.
+    seg = st_ops.sturm_eigenvalues(t(d[:1, :7]), t(e[:1, :6]),
+                                   window=(k, largest))
+    assert_close(got[0, 0], seg[0], "sturm", dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("largest", [True, False])
+def test_sturm_bracketed_matches_repro(largest, dtype):
+    d, e = bands(21, 3, 17, dtype)
+    k = 5
+    win = np_of(st_ops.sturm_eigenvalues(t(d), t(e), window=(k, largest)))
+    lo = (win - 0.02).astype(dtype)
+    hi = (win + 0.02).astype(dtype)
+    lo[1, :2] += 4.0  # stale lanes: the Gershgorin fallback runs
+    hi[1, :2] += 4.0
+    got = st_ops.sturm_eigenvalues_bracketed(t(d), t(e), t(lo), t(hi), k=k,
+                                             largest=largest)
+    ref = r_st.sturm_eigenvalues_bracketed(
+        jnp.asarray(d), jnp.asarray(e), jnp.asarray(lo), jnp.asarray(hi),
+        k=k, largest=largest)
+    assert_close(got, ref, "sturm", dtype)
+    assert_close(got, win, "sturm", dtype)
+
+
+def test_segmented_plain_on_a_full_band_is_bitwise_the_window():
+    d, e = (t(x) for x in bands(13, 2, 30))
+    k = 6
+    off = torch.zeros((2, 1), dtype=torch.int32)
+    length = torch.full((2, 1), 30, dtype=torch.int32)
+    got = st_ops.sturm_eigenvalues_segmented(d, e, off, length, k=k,
+                                             largest=True)
+    assert torch.equal(got[:, 0], st_ops.sturm_eigenvalues(d, e,
+                                                           window=(k, True)))
+
+
 def test_sturm_ref_is_the_plain_path():
     d, e = bands(11, 2, 9)
     assert torch.equal(st_ref.sturm_eigenvalues(t(d), t(e)),
@@ -200,6 +271,61 @@ def test_eei_magnitudes_windowed_matches_repro_and_full_rows(dtype):
     assert torch.equal(got, full[:, idx])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 4, 4, 3), (3, 12, 12, 11),
+                                   (2, 40, 33, 17)])
+def test_logabs_sum_batched_mask_matches_repro(shape, dtype):
+    """No test of repro reaches its masked kernel: its op is called with
+    ``mask=`` here.  A per-matrix random mask, valid where it is > 0."""
+    b, i_n, j_n, k_n = shape
+    rng = np.random.default_rng(i_n * 7 + k_n)
+    lam = rng.standard_normal((b, i_n)).astype(dtype)
+    mu = rng.standard_normal((b, j_n, k_n)).astype(dtype)
+    mask = (rng.random((b, j_n, k_n)) > 0.4).astype(dtype)
+    got = pd_ops.logabs_sum_batched(t(lam), t(mu), 1e-9, mask=t(mask))
+    ref = r_pd.logabs_sum_batched(jnp.asarray(lam), jnp.asarray(mu), 1e-9,
+                                  mask=jnp.asarray(mask))
+    assert_close(got, ref, "prod_diff", dtype)
+
+
+def test_masked_prod_diff_adds_exact_zeros():
+    lam, mu = _spectra(14, 2, 9, "float64")
+    floor = torch.full((2,), 1e-9, dtype=torch.float64)
+    valid = torch.ones(mu.shape, dtype=torch.bool)
+    assert torch.equal(
+        pd_kernel.logabs_sum_masked(t(lam), t(mu), valid, floor),
+        pd_kernel.logabs_sum(t(lam), t(mu), floor))
+    valid[:, :, 5:] = False
+    assert_close(pd_kernel.logabs_sum_masked(t(lam), t(mu), valid, floor),
+                 pd_kernel.logabs_sum(t(lam), t(mu[:, :, :5]).contiguous(),
+                                      floor), "prod_diff", "float64")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_single_matrix_logabs_sum_and_magnitudes_match_repro(dtype):
+    """``logabs_sum`` and ``eei_magnitudes`` reach the single-matrix kernel;
+    the spectra are a real matrix's and its minors'."""
+    from test_torch_parity import sym_stack
+
+    a = sym_stack(15, 1, 13)[0]
+    lam = np.linalg.eigvalsh(a).astype(dtype)
+    mu = np.stack([np.linalg.eigvalsh(np.delete(np.delete(a, j, 0), j, 1))
+                   for j in range(13)]).astype(dtype)
+    got = pd_ops.logabs_sum(t(lam), t(mu), 1e-9)
+    assert got.shape == (13, 13)
+    assert_close(got, r_pd.logabs_sum(jnp.asarray(lam), jnp.asarray(mu),
+                                      1e-9), "prod_diff", dtype)
+    mags = pd_ops.eei_magnitudes(t(lam), t(mu))
+    assert_close(mags, r_pd.eei_magnitudes(jnp.asarray(lam), jnp.asarray(mu)),
+                 "prod_diff", dtype)
+    v = np.linalg.eigh(a)[1]
+    assert_close(mags, (v * v).T,
+                 "prod_diff" if dtype == "float64" else "magnitudes", dtype)
+    assert_close(mags, pd_ops.eei_magnitudes_batched(t(lam[None]),
+                                                     t(mu[None]))[0],
+                 "prod_diff", dtype)
+
+
 def test_plain_prod_diff_chunking_is_bitwise_invisible(monkeypatch):
     lam, mu = _spectra(8, 2, 15, "float64")
     floor = torch.full((2,), 1e-9, dtype=torch.float64)
@@ -233,6 +359,17 @@ def test_wrappers_refuse_other_devices():
     floor = torch.zeros((2,), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         pd_kernel.logabs_sum(lam, mu, floor)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pd_kernel.logabs_sum_masked(
+            lam, mu, torch.ones((2, 5, 4), dtype=torch.bool, device="meta"),
+            floor)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pd_kernel.logabs_sum_single(lam[0], mu[0], floor[0])
+    lanes = torch.zeros((2, 3), device="meta")
+    ilanes = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        st_kernel.sturm_segmented(d, e, lanes, lanes, lanes, ilanes, ilanes,
+                                  ilanes, n_iter=4)
     assert st_kernel.sturm_bisect.launches == 0
     assert pd_kernel.logabs_sum.launches == 0
 
@@ -253,13 +390,36 @@ def test_wrappers_check_operands():
         pd_kernel.logabs_sum(lam, mu.float(), torch.ones(2, dtype=torch.float64))
     with pytest.raises(ValueError):
         pd_kernel.logabs_sum(lam, mu, torch.ones(3, dtype=torch.float64))
+    floor = torch.ones(2, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bool"):
+        pd_kernel.logabs_sum_masked(lam, mu, torch.ones(mu.shape), floor)
+    with pytest.raises(ValueError):
+        pd_kernel.logabs_sum_masked(lam, mu, torch.ones((2, 6, 4),
+                                                        dtype=torch.bool),
+                                    floor)
+    with pytest.raises(ValueError):
+        pd_kernel.logabs_sum_single(lam, mu, floor)
+    lanes = torch.zeros((2, 3), dtype=torch.float64)
+    ilanes = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        st_kernel.sturm_segmented(d, e, lanes, lanes, lanes, ilanes.long(),
+                                  ilanes, ilanes, n_iter=4)
+    with pytest.raises(ValueError):
+        st_kernel.sturm_segmented(d, e, lanes, lanes[:, :2], lanes, ilanes,
+                                  ilanes, ilanes, n_iter=4)
 
 
 def test_plain_versions_launch_nothing():
     d, e = bands(3, 2, 8)
     st_ops.sturm_eigenvalues(t(d), t(e))
+    st_ops.sturm_eigenvalues_bracketed(t(d), t(e), t(d[:, :2]), t(d[:, :2]),
+                                       k=2, largest=True)
     lam, mu = _spectra(3, 2, 8, "float64")
     pd_ops.eei_magnitudes_batched(t(lam), t(mu))
-    assert st_kernel.sturm_bisect.launches == 0
-    assert pd_kernel.logabs_sum.launches == 0
+    pd_ops.logabs_sum_batched(t(lam), t(mu), 1e-9, mask=t(mu > 0))
+    pd_ops.eei_magnitudes(t(lam[0]), t(mu[0]))
+    for wrapper in (st_kernel.sturm_bisect, st_kernel.sturm_segmented,
+                    pd_kernel.logabs_sum, pd_kernel.logabs_sum_masked,
+                    pd_kernel.logabs_sum_single):
+        assert wrapper.launches == 0
     assert np.isfinite(np_of(pd_ops.eei_magnitudes_batched(t(lam), t(mu)))).all()

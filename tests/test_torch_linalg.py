@@ -1,7 +1,8 @@
 """repro_torch linalg and core modules against their repro twins.
 
-Sturm bisection, the Householder reduce, minors, the log-space identity and
-the tridiagonal sign recurrence: the same seeded numpy inputs through
+Sturm bisection (cold and from warm brackets), the interlacing brackets, the
+Householder reduce, minors, the log-space identity and the tridiagonal sign
+recurrence: the same seeded numpy inputs through
 ``repro`` and through the port on the CPU.
 """
 
@@ -13,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
+from hypothesis_compat import given, settings, st  # noqa: E402
 from test_torch_parity import (  # noqa: E402
     DTYPES,
     align_rows,
@@ -27,9 +29,10 @@ from repro.core import directions as r_directions  # noqa: E402
 from repro.core import identity as r_identity  # noqa: E402
 from repro.core import minors as r_minors  # noqa: E402
 from repro.linalg import householder as r_householder  # noqa: E402
+from repro.linalg import interlace as r_interlace  # noqa: E402
 from repro.linalg import sturm as r_sturm  # noqa: E402
 from repro_torch.core import directions, identity, minors  # noqa: E402
-from repro_torch.linalg import householder, sturm  # noqa: E402
+from repro_torch.linalg import householder, interlace, sturm  # noqa: E402
 
 # -- linalg/sturm ------------------------------------------------------------
 
@@ -237,3 +240,175 @@ def test_tridiagonal_signs_match_repro(dtype):
     # and the signs are those of the true eigenvectors
     truth = np.swapaxes(v[..., -4:], -1, -2)
     assert_close(align_rows(np_of(got), truth), truth, "prod_diff", "float32")
+
+
+# -- linalg/sturm: warm brackets ------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("largest", [True, False])
+def test_bisect_bracketed_matches_repro_with_stale_lanes(largest, dtype):
+    """Sound brackets from the spectrum itself on matrices 0-1, stale ones
+    (a shifted spectrum) on matrix 2: every lane lands on its eigenvalue."""
+    d, e = bands(12, 3, 14, dtype)
+    k = 4
+    lam = np.asarray(r_sturm.bisect_eigenvalues_batched(jnp.asarray(d),
+                                                        jnp.asarray(e)))
+    win = lam[:, -k:] if largest else lam[:, :k]
+    lo = (win - 0.05).astype(dtype)
+    hi = (win + 0.05).astype(dtype)
+    lo[2] += 3.0
+    hi[2] += 3.0
+    got = sturm.bisect_eigenvalues_bracketed_batched(
+        t(d), t(e), t(lo), t(hi), k, largest=largest)
+    ref = r_sturm.bisect_eigenvalues_bracketed_batched(
+        jnp.asarray(d), jnp.asarray(e), jnp.asarray(lo), jnp.asarray(hi), k,
+        largest=largest)
+    assert_close(got, ref, "sturm", dtype)
+    assert_close(got, win, "sturm", dtype)
+
+
+@settings(max_examples=15, deadline=None)
+@given(seed=st.integers(0, 10_000), n=st.integers(3, 16),
+       k=st.integers(1, 3), shift=st.sampled_from([-5.0, 0.0, 5.0]))
+def test_property_bracketed_bisection_distrusts_stale_brackets(seed, n, k,
+                                                               shift):
+    """tests/test_linalg.py:178-199 mirrored: brackets from the shifted
+    spectrum of another matrix still give the index-correct eigenvalues."""
+    rng = np.random.default_rng(seed)
+    k = min(k, n)
+    d = rng.standard_normal(n)
+    e = rng.standard_normal(n - 1)
+    ref = np.linalg.eigvalsh(np_of(householder.tridiagonal_matrix(t(d),
+                                                                   t(e))))
+    stale = np.sort(rng.standard_normal(n)) + shift
+    lo, hi = interlace.rank1_update_brackets(t(stale), 0.1)
+    got = sturm.bisect_eigenvalues_bracketed(t(d), t(e), lo[-k:], hi[-k:], k,
+                                             largest=True)
+    np.testing.assert_allclose(np_of(got), ref[-k:], atol=1e-8)
+
+
+def test_bracketed_segment_of_the_whole_band_is_the_window():
+    """With one full-band segment and the Gershgorin bracket, the segmented
+    plain bisection is bitwise the windowed one (kernel 3 vs kernel 1)."""
+    d, e = (t(x) for x in bands(8, 3, 19))
+    k = 5
+    lo, hi = sturm.gershgorin_bounds(d, e)
+    lanes = lambda x: x.unsqueeze(-1).expand(3, k)  # noqa: E731
+    targets = torch.arange(19 - k, 19, dtype=torch.int32).expand(3, k)
+    got = sturm.bisect_lanes_segmented(
+        d, e, lanes(lo), lanes(hi), lanes(sturm._pivmin(d, e)),
+        torch.zeros_like(targets), torch.full_like(targets, 19), targets, 64)
+    assert torch.equal(got, sturm.bisect_eigenvalues_windowed(d, e, k))
+
+
+# -- linalg/interlace -----------------------------------------------------------
+
+
+def _spectrum(seed, shape, dtype="float64"):
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.standard_normal(shape), axis=-1).astype(dtype)
+
+
+def test_interlacing_checks_match_repro():
+    a = sym_stack(0, 1, 9)[0]
+    lam = np.linalg.eigvalsh(a)
+    mu = np.linalg.eigvalsh(a[1:, 1:])
+    theta = np.linalg.eigvalsh(np.linalg.qr(
+        np.random.default_rng(1).standard_normal((9, 4)))[0].T
+        @ a @ np.linalg.qr(np.random.default_rng(1).standard_normal(
+            (9, 4)))[0])
+    for got, ref in (
+            (interlace.interlacing_holds(t(lam), t(mu)),
+             r_interlace.interlacing_holds(jnp.asarray(lam), jnp.asarray(mu))),
+            (interlace.interlacing_holds(t(lam), t(mu + 1.0)),
+             r_interlace.interlacing_holds(jnp.asarray(lam),
+                                           jnp.asarray(mu + 1.0))),
+            (interlace.ritz_interlacing_holds(t(lam), t(theta)),
+             r_interlace.ritz_interlacing_holds(jnp.asarray(lam),
+                                                jnp.asarray(theta))),
+            (interlace.ritz_interlacing_holds(t(lam), t(theta * 3.0)),
+             r_interlace.ritz_interlacing_holds(jnp.asarray(lam),
+                                                jnp.asarray(theta * 3.0)))):
+        assert bool(got) == bool(ref)
+    assert bool(interlace.interlacing_holds(t(lam), t(mu)))
+    assert not bool(interlace.interlacing_holds(t(lam), t(mu + 1.0)))
+
+
+@pytest.mark.parametrize("rtol", [0.0, 1e-7, 0.5])
+def test_interlacing_brackets_match_repro(rtol):
+    lam = _spectrum(2, (3, 8))
+    lam[0, 3:6] = lam[0, 3]  # a repeated eigenvalue: zero-width brackets
+    lo, hi = interlace.interlacing_brackets(t(lam), rtol=rtol)
+    rlo, rhi = r_interlace.interlacing_brackets(jnp.asarray(lam), rtol=rtol)
+    np.testing.assert_allclose(np_of(lo), np.asarray(rlo), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(np_of(hi), np.asarray(rhi), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("rho", [0.7, -0.4, 0.0, "batched"])
+def test_rank1_update_brackets_match_repro(rho):
+    lam = _spectrum(3, (3, 6))
+    if rho == "batched":
+        rho = np.array([0.3, -1.2, 0.0])
+    slack = np.array([[1e-3], [0.0], [2e-2]])
+    got = interlace.rank1_update_brackets(t(lam), t(np.asarray(rho)),
+                                          drift_bound=t(slack))
+    ref = r_interlace.rank1_update_brackets(
+        jnp.asarray(lam), jnp.asarray(rho), drift_bound=jnp.asarray(slack))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(np_of(g), np.asarray(r), rtol=0,
+                                   atol=1e-12)
+    plain = interlace.rank1_update_brackets(t(lam[0]), 0.25)
+    rplain = r_interlace.rank1_update_brackets(jnp.asarray(lam[0]), 0.25)
+    for g, r in zip(plain, rplain):
+        np.testing.assert_allclose(np_of(g), np.asarray(r), rtol=0,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("rho", [0.9, -0.6])
+def test_secular_refine_matches_repro_and_contains_the_roots(rho):
+    """With the full-space weights the secular roots are the updated
+    spectrum, and refinement keeps containing it."""
+    rng = np.random.default_rng(5)
+    lam = np.sort(rng.standard_normal(7))
+    z = rng.standard_normal(7)
+    z /= np.linalg.norm(z)
+    lam_new = np.linalg.eigvalsh(np.diag(lam) + rho * np.outer(z, z))
+    lo, hi = interlace.rank1_update_brackets(t(lam), rho)
+    got = interlace.secular_bracket_refine(t(lam), t(z * z), rho, lo, hi)
+    rlo, rhi = r_interlace.rank1_update_brackets(jnp.asarray(lam), rho)
+    ref = r_interlace.secular_bracket_refine(
+        jnp.asarray(lam), jnp.asarray(z * z), rho, rlo, rhi)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(np_of(g), np.asarray(r), rtol=0,
+                                   atol=1e-12)
+    assert (lam_new >= np_of(got[0]) - 1e-12).all()
+    assert (lam_new <= np_of(got[1]) + 1e-12).all()
+    assert (np_of(got[1] - got[0]) <= np_of(hi - lo) + 1e-15).all()
+    # Batched, with every midpoint exactly on a pole (the guard's case):
+    # zero-width brackets at the old eigenvalues, and wide ones.
+    lam_b = np.stack([lam, lam + 1.0])
+    z2_b = np.stack([z * z, np.roll(z * z, 2)])
+    rho_b = np.array([rho, -rho])
+    lo_b = np.stack([lam, lam])
+    hi_b = np.stack([lam, lam + 2.0])
+    got = interlace.secular_bracket_refine(t(lam_b), t(z2_b), t(rho_b),
+                                           t(lo_b), t(hi_b))
+    ref = r_interlace.secular_bracket_refine(
+        jnp.asarray(lam_b), jnp.asarray(z2_b), jnp.asarray(rho_b),
+        jnp.asarray(lo_b), jnp.asarray(hi_b))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(np_of(g), np.asarray(r), rtol=0,
+                                   atol=1e-12)
+
+
+def test_degenerate_spectrum_bracketed_end_to_end():
+    """tests/test_linalg.py:202-213 mirrored: all-equal spectrum."""
+    n = 10
+    d = torch.full((n,), 3.0, dtype=torch.float64)
+    e = torch.zeros((n - 1,), dtype=torch.float64)
+    lo, hi = interlace.rank1_update_brackets(
+        torch.full((n,), 3.0, dtype=torch.float64), 0.0)
+    assert bool((hi - lo > 0).all())
+    got = sturm.bisect_eigenvalues_bracketed(d, e, lo[-4:], hi[-4:], 4)
+    np.testing.assert_allclose(np_of(got), np.full(4, 3.0), atol=1e-10)
