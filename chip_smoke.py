@@ -28,10 +28,11 @@ Phases, each of which fails the run (non-zero exit) on error:
 5. run a streaming session at n = 600, k = 8 (2 warm-up rank-1 updates, 32
    at 1% of ``||A||_F``, 2 at 60%) and check every step against float64
    ``eigvalsh`` and the verify stage: the stream must take the fast path
-   with one segmented-Sturm launch per update, and the large updates must
-   force a drift re-solve, with no verify re-solve; the host rung may run
-   only for a float32 re-solve after a large update, and only where the
-   card's own re-solve of that matrix fails verify;
+   with one segmented-Sturm launch per update, bitwise its plain version on
+   each update's operands, and the large updates must force a drift
+   re-solve, with no verify re-solve; the host rung may run only for a
+   float32 re-solve after a large update, and only where the card's own
+   re-solve of that matrix fails verify;
 6. time each kernel (CUDA events) beside its bound, its plain version and
    the library yardstick, split one solve into its stages, and time the
    end-to-end solve against ``torch.linalg.eigh`` and the session update
@@ -885,7 +886,9 @@ def _phase_session(torch, dev, stack):
                              SolverPlan, plan_for)
     from repro_torch.engine import session as session_mod
     from repro_torch.engine.verify import verify_topk_host
-    from repro_torch.kernels.sturm.kernel import sturm_segmented
+    from repro_torch.kernels.sturm import ops as st_ops
+    from repro_torch.kernels.sturm.kernel import (sturm_segmented,
+                                                  sturm_segmented_plain)
 
     # Every run of the host rung, with where in the stream it ran and the
     # matrix it was given.
@@ -950,8 +953,22 @@ def _phase_session(torch, dev, stack):
                 update(small, f"warm-up {i}")
             fast0 = session.fast_updates
             seg0 = sturm_segmented.launches
-            times = [update(small, f"stream {i}")
-                     for i in range(SESSION_STREAM)]
+            # Every segmented launch of the stream, with the operands the
+            # tridiag_bracketed stage gave it and what it returned: held
+            # against the plain version below, outside the counted run.
+            seg_calls = []
+
+            def capturing(d, e, *, n_iter, **lanes):
+                got = sturm_segmented(d, e, **lanes, n_iter=n_iter)
+                seg_calls.append((d, e, lanes, n_iter, got))
+                return got
+
+            st_ops.sturm_segmented = capturing
+            try:
+                times = [update(small, f"stream {i}")
+                         for i in range(SESSION_STREAM)]
+            finally:
+                st_ops.sturm_segmented = sturm_segmented
             stream_fast = session.fast_updates - fast0
             stream_seg = sturm_segmented.launches - seg0
             for i in range(SESSION_BIG):
@@ -973,6 +990,21 @@ def _phase_session(torch, dev, stack):
             check(counts["sturm_segmented"] == stats["fast_updates"],
                   f"session {name}: {counts['sturm_segmented']} segmented "
                   f"Sturm launches for {stats['fast_updates']} fast updates")
+            check(len(seg_calls) == SESSION_STREAM, f"session {name}: "
+                  f"{len(seg_calls)} segmented launches went through the "
+                  f"bracketed op over {SESSION_STREAM} fast updates")
+            for i, (d, e, lanes, n_iter, got) in enumerate(seg_calls):
+                check(torch.equal(got, sturm_segmented_plain(
+                    d, e, **lanes, n_iter=n_iter)),
+                    f"session {name} stream {i}: the segmented Sturm kernel "
+                    f"differs from its plain version on the update's "
+                    f"{tuple(d.shape)} band, {tuple(got.shape)} lanes")
+            d, e, lanes, n_iter, got = seg_calls[-1]
+            print(f"[session] {name}: sturm_segmented bitwise its plain "
+                  f"version on the operands of all {len(seg_calls)} stream "
+                  f"updates (band {tuple(d.shape)}, lanes "
+                  f"{tuple(got.shape)}, n_iter {n_iter}, segment "
+                  f"[{int(lanes['start'].min())}, {int(lanes['end'].max())}))")
             causes = stats["resolves_by_cause"]
             check(causes.get("drift", 0) >= 1,
                   f"session {name}: the large updates forced no drift "
@@ -982,9 +1014,11 @@ def _phase_session(torch, dev, stack):
             # The host rung may only have run where the session's own
             # re-solve could not pass verify: in float32, on the matrix a
             # large update left (a dominant eigenvalue takes the float32 EEI
-            # components past the residual bound, in repro as well:
-            # tests/test_torch_session.py).  Never in float64, and never for
-            # the open, the warm-up or the stream.
+            # components past the residual bound; repro's float32 re-solve
+            # of this very matrix misses it with the same residual:
+            # tests/test_torch_session.py::test_float32_resolve_of_the_chip_
+            # smoke_matrix_misses_verify_in_both_packages).  Never in
+            # float64, and never for the open, the warm-up or the stream.
             for r in mine:
                 check(name == "float32" and r["stage"].startswith("large"),
                       f"session {name}: the host rung ran for {r['stage']}")
@@ -1037,7 +1071,8 @@ def _phase_session(torch, dev, stack):
                   f"of 3)")
             _split_update(torch, dev, engine, session, rng, small, name)
             out[name] = dict(counts=counts, stats=stats, latency=lat,
-                             reseeds=[r["stage"] for r in mine])
+                             reseeds=[r["stage"] for r in mine],
+                             launches_per_update=stream_seg / SESSION_STREAM)
     finally:
         session_mod.host_reseed = host_reseed
     return out
@@ -1113,7 +1148,7 @@ def _phase_timing_other_kernels(torch, dev, kernels, segmented, variants, op_cou
             launches=sessions[name]["counts"]["sturm_segmented"],
             err=sg["err"], ms=ms, plain_ms=sg["plain_ms"], bound_ms=bound,
             bound_by=by, library_ms=lib_ms,
-            launches_per_update=1))
+            launches_per_update=sessions[name]["launches_per_update"]))
 
         vd = variants[name]
         lam, mu, floor, mask = kd["lam"], kd["mu"], kd["floor"], vd["mask"]

@@ -43,8 +43,6 @@ SIGNATURES = {
     "logabs_sum_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "logabs_sum_masked_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "logabs_sum_masked_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "logabs_sum_single_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "logabs_sum_single_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

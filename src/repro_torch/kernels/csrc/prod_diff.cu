@@ -2,7 +2,7 @@
 // (sm_90a):
 //     out[b, i, j] = sum_{k < K} log(max(|lam[b, i] - mu[b, j, k]|, floor[b]))
 //
-// Three entry points share one block body:
+// Two entry points share one block body:
 //   logabs_sum         replaces `logabs_sum_batched_padded` /
 //                      `_logabs_sum_batched_kernel` of
 //                      src/repro/kernels/prod_diff/kernel.py with its mask of
@@ -12,8 +12,9 @@
 //                      `_logabs_sum_batched_masked_kernel`: each matrix has
 //                      its own validity mask mask[b, j, k] (one byte a
 //                      cell), and a masked cell adds exactly log 1 = 0.
-//   logabs_sum_single  replaces `logabs_sum_padded` / `_logabs_sum_kernel`:
-//                      one matrix, lam (I), mu (J, K), one scalar floor.
+// `logabs_sum_padded` / `_logabs_sum_kernel` (one matrix, one scalar floor)
+// is `logabs_sum` on a batch of one: its wrapper, `logabs_sum_single` in
+// kernels/prod_diff/kernel.py, launches that entry with B = 1.
 //
 // Design: one thread per output (b, i, j).  A block of 32 x 8 threads covers
 // 32 consecutive j (one warp) by 8 consecutive i of one matrix b; the grid is
@@ -106,15 +107,6 @@ __global__ void logabs_sum_masked_kernel(const T* __restrict__ lam,
                             floor_[b], out + b * I * J, I, J, K);
 }
 
-template <typename T>
-__global__ void logabs_sum_single_kernel(const T* __restrict__ lam,
-                                         const T* __restrict__ mu,
-                                         const T* __restrict__ floor_,
-                                         T* __restrict__ out, int I, int J,
-                                         int K) {
-  logabs_sum_block<T, false>(lam, mu, nullptr, floor_[0], out, I, J, K);
-}
-
 dim3 grid_of(int B, int I, int J) {
   return dim3((J + kTileJ - 1) / kTileJ, (I + kTileI - 1) / kTileI, B);
 }
@@ -136,15 +128,6 @@ int launch_logabs_sum_masked(const T* lam, const T* mu,
   logabs_sum_masked_kernel<T><<<grid_of(B, I, J), dim3(kTileJ, kTileI), 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       lam, mu, mask, floor_, out, I, J, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_logabs_sum_single(const T* lam, const T* mu, const T* floor_,
-                             T* out, int I, int J, int K, void* stream) {
-  logabs_sum_single_kernel<T><<<grid_of(1, I, J), dim3(kTileJ, kTileI), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      lam, mu, floor_, out, I, J, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -176,18 +159,4 @@ extern "C" int logabs_sum_masked_f64(const double* lam, const double* mu,
                                      int I, int J, int K, void* stream) {
   return launch_logabs_sum_masked<double>(lam, mu, mask, floor_, out, B, I,
                                           J, K, stream);
-}
-
-extern "C" int logabs_sum_single_f32(const float* lam, const float* mu,
-                                     const float* floor_, float* out, int I,
-                                     int J, int K, void* stream) {
-  return launch_logabs_sum_single<float>(lam, mu, floor_, out, I, J, K,
-                                         stream);
-}
-
-extern "C" int logabs_sum_single_f64(const double* lam, const double* mu,
-                                     const double* floor_, double* out, int I,
-                                     int J, int K, void* stream) {
-  return launch_logabs_sum_single<double>(lam, mu, floor_, out, I, J, K,
-                                          stream);
 }

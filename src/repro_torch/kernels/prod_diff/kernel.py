@@ -11,7 +11,8 @@ wrapper's ``.launches`` counts its kernel launches.
   ``logabs_sum_batched_masked_padded``: the same with a validity mask per
   matrix, where a masked cell adds exactly 0;
 * :func:`logabs_sum_single`, the port of ``logabs_sum_padded``: one matrix
-  and one scalar floor.
+  and one scalar floor, launched as :func:`logabs_sum`'s kernel on a batch
+  of one.
 """
 
 from __future__ import annotations
@@ -47,18 +48,14 @@ def logabs_sum_masked_plain(lam: torch.Tensor, mu: torch.Tensor,
 logabs_sum_single_plain = logabs_sum_plain
 
 
-def _check(what, lam, mu, floor, batched=True, mask=None):
+def _check(what, lam, mu, floor, mask=None):
     if lam.dtype not in _DTYPES:
         raise TypeError(f"{what} takes float32 or float64, got {lam.dtype}")
-    lead = lam.shape[:1] if batched else ()
-    if (lam.ndim != len(lead) + 1 or mu.ndim != len(lead) + 2
-            or mu.shape[:len(lead)] != lead):
-        want = "lam (B, I) and mu (B, J, K)" if batched else \
-            "lam (I,) and mu (J, K)"
-        raise ValueError(f"{what}: expected {want}, got {tuple(lam.shape)} "
-                         f"and {tuple(mu.shape)}")
-    if tuple(floor.shape) != tuple(lead):
-        raise ValueError(f"floor must be {tuple(lead)}, got "
+    if lam.ndim != 2 or mu.ndim != 3 or mu.shape[0] != lam.shape[0]:
+        raise ValueError(f"{what}: expected lam (B, I) and mu (B, J, K), got "
+                         f"{tuple(lam.shape)} and {tuple(mu.shape)}")
+    if tuple(floor.shape) != lam.shape[:1]:
+        raise ValueError(f"floor must be {tuple(lam.shape[:1])}, got "
                          f"{tuple(floor.shape)}")
     for name, t in (("mu", mu), ("floor", floor)):
         if t.dtype != lam.dtype or t.device != lam.device:
@@ -71,11 +68,11 @@ def _check(what, lam, mu, floor, batched=True, mask=None):
                              f"{tuple(mask.shape)}")
 
 
-def _dispatch(wrapper, plain, args):
-    """Run ``plain(*args)`` on CPU tensors; on CUDA tensors launch
-    ``wrapper``'s kernel (named after it) and count the launch.  ``args``
-    starts with ``lam (..., I)`` and ``mu (..., J, K)``; the output is
-    ``(..., I, J)``."""
+def _dispatch(wrapper, plain, args, kernel=None):
+    """Run ``plain(*args)`` on CPU tensors; on CUDA tensors launch the
+    kernel ``kernel`` (by default named after ``wrapper``) and count the
+    launch on ``wrapper``.  ``args`` starts with ``lam (B, I)`` and ``mu (B,
+    J, K)``; the output is ``(B, I, J)``."""
     what = wrapper.__name__
     lam, mu = args[0], args[1]
     if lam.device.type == "cpu":
@@ -84,16 +81,15 @@ def _dispatch(wrapper, plain, args):
         raise ValueError(f"{what} runs on cpu or cuda, not {lam.device}")
     if not all(t.is_contiguous() for t in args):
         raise ValueError(f"{what} needs contiguous operands")
-    lead = tuple(lam.shape[:-1])
-    if lead and lead[0] > 65535:
+    if lam.shape[0] > 65535:
         raise ValueError(f"{what} takes at most 65535 matrices, got "
-                         f"{lead[0]}")
-    out = torch.empty(lead + (lam.shape[-1], mu.shape[-2]), dtype=lam.dtype,
+                         f"{lam.shape[0]}")
+    out = torch.empty(lam.shape + mu.shape[-2:-1], dtype=lam.dtype,
                       device=lam.device)
     if out.numel() == 0:
         return out
-    build.launch(_entry(what, lam.dtype), lam.device, *args, out, *lead,
-                 lam.shape[-1], *mu.shape[-2:])
+    build.launch(_entry(kernel or what, lam.dtype), lam.device, *args, out,
+                 *lam.shape, *mu.shape[-2:])
     wrapper.launches += 1
     return out
 
@@ -133,10 +129,18 @@ def logabs_sum_single(lam: torch.Tensor, mu: torch.Tensor,
                       floor: torch.Tensor) -> torch.Tensor:
     """``out[i, j] = sum_k log(max(|lam[i] - mu[j, k]|, floor))`` for one
     matrix: ``lam (I,)``, ``mu (J, K)``, ``floor`` a 0-d tensor; returns
-    ``(I, J)``.  The ``k`` terms are added in order."""
-    _check("logabs_sum_single", lam, mu, floor, batched=False)
-    return _dispatch(logabs_sum_single, logabs_sum_single_plain,
-                     (lam, mu, floor))
+    ``(I, J)``.  The ``k`` terms are added in order.
+
+    It launches :func:`logabs_sum`'s kernel on a batch of one, and counts
+    the launch here, not on :func:`logabs_sum`."""
+    if lam.ndim != 1 or mu.ndim != 2 or floor.ndim != 0:
+        raise ValueError(f"logabs_sum_single: expected lam (I,), mu (J, K) "
+                         f"and a 0-d floor, got {tuple(lam.shape)}, "
+                         f"{tuple(mu.shape)} and {tuple(floor.shape)}")
+    args = (lam[None], mu[None], floor.reshape(1))
+    _check("logabs_sum_single", *args)
+    return _dispatch(logabs_sum_single, logabs_sum_plain, args,
+                     kernel="logabs_sum")[0]
 
 
 logabs_sum_single.launches = 0

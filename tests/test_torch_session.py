@@ -354,3 +354,52 @@ def test_float32_spike_resolve_falls_to_the_host_in_both_packages(
     flags = verify_topk_host(a_new, np_of(engine_res.eigenvalues),
                              np_of(engine_res.vectors))
     assert not bool(flags.ok) and 2e-3 < float(flags.residual) < 5e-3
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_float32_resolve_of_the_chip_smoke_matrix_misses_verify_in_both_packages(
+        capsys):
+    """chip_smoke.py lets its float32 session take the host rung for the
+    re-solve after its first large update, and only where the card's own
+    re-solve of that matrix fails verify.  This rebuilds that n = 600
+    matrix from the script's seed and stream and shows that ``repro``'s
+    float32 re-solve (eei_tridiag, pallas in interpret mode) misses the
+    bound there too, with the same residual as the port's (on the CPU)."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(smoke.SEED)
+    a = rng.standard_normal((smoke.B, smoke.N, smoke.N))
+    a = (a + np.swapaxes(a, 1, 2))[0] / 2
+    n, fro = smoke.N, float(np.linalg.norm(a))
+    rng = np.random.default_rng(smoke.SEED + 4)
+    for scale in ([0.01] * (smoke.SESSION_WARMUP + smoke.SESSION_STREAM)
+                  + [0.6]):
+        u = rng.standard_normal(n) * np.sqrt(scale * fro / n)
+        a = a + np.outer(u, u)
+    a32 = a.astype(np.float32)
+    m_keep = smoke.K + SessionConfig().buffer
+
+    res = _engine("float32").topk(torch.as_tensor(a32), m_keep)
+    port = verify_topk_host(a32, np_of(res.eigenvalues), np_of(res.vectors))
+    r_res = r_engine.SolverEngine(r_engine.SolverPlan(
+        method="eei_tridiag", backend="pallas",
+        precision="float32")).topk(a32, m_keep)
+    ref = verify_topk_host(a32, np.asarray(r_res.eigenvalues),
+                           np.asarray(r_res.vectors))
+    with capsys.disabled():
+        print(f"\nfloat32 top-{m_keep} of chip_smoke.py's matrix after its "
+              f"first large update: residual {float(port.residual):.6e} "
+              f"(port), {float(ref.residual):.6e} (repro) of ||A||_F")
+    assert not bool(np.all(ref.ok)) and not bool(np.all(port.ok))
+    assert float(ref.residual) > 2e-3
+    np.testing.assert_allclose(float(port.residual), float(ref.residual),
+                               rtol=1e-2)
