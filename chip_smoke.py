@@ -6,13 +6,18 @@
 Run from the repository root on a machine with one CUDA card and ``nvcc``.
 Phases, each of which fails the run (non-zero exit) on error:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
-   ``nvcc -Xptxas -v``'s registers and shared memory per kernel;
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``; print
+   ``nvcc -Xptxas -v``'s registers, shared memory and spills per kernel, the
+   instructions per recurrence step (Sturm) and per term (prod-diff) in the
+   SASS of the kernels' inner loops (``cuobjdump -sass``), and the Sturm
+   kernel's launch geometry at each of its shapes;
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes (b = 16 matrices of n = 600), in float64 and float32:
-   - the Sturm and prod-diff kernels, and their two bitwise contracts (a
-     Sturm window equals the slice of the full spectrum; windowed prod-diff
-     rows equal the full table's rows);
+   - the Sturm kernel bitwise on the spectrum, the k = 8 window and all
+     9600 minor bands, and the prod-diff kernel within its tolerance, also
+     on terms from the floor up to ~1e300 (1e30 in float32); the two
+     bitwise contracts (a Sturm window equals the slice of the full
+     spectrum; windowed prod-diff rows equal the full table's rows);
    - the segmented Sturm kernel, bitwise, on the 16 bands packed 4 to a row
      and on the 9600 minor bands packed 4 to a row, and from warm brackets
      after a rank-1 update (some made stale on purpose); with one full-band
@@ -34,9 +39,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    float32 re-solve after a large update, and only where the card's own
    re-solve of that matrix fails verify;
 6. time each kernel (CUDA events) beside its bound, its plain version and
-   the library yardstick, split one solve into its stages, and time the
-   end-to-end solve against ``torch.linalg.eigh`` and the session update
-   against a top-k from scratch.
+   the library yardstick (the Sturm kernel also on the k = 8 window, the
+   segmented kernel also alone at the shape the session launches it), split
+   one solve into its stages, and time the end-to-end solve against
+   ``torch.linalg.eigh`` and the session update against a top-k from
+   scratch.
 
 Every launch count is set to 0 just before each of phases 3, 4 and 5 and
 read just after, and a kernel that its path did not launch fails the run.
@@ -125,14 +132,14 @@ def main() -> int:
     build.library()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"({build.library_dir()})")
-    report = (build.library_dir() / "ptxas.txt")
-    if report.is_file():
-        for line in report.read_text().splitlines():
-            if ("registers" in line or "Compiling entry" in line
-                    or "spill" in line or line.startswith("==")):
-                print("[build] " + line.strip())
-    print(f"[build] sturm_bisect dynamic shared memory per block: 2 n values, "
-          f"{2 * N * 8} B in float64 and {2 * N * 4} B in float32 at n={N}")
+    _kernel_report(build)
+    from repro_torch.kernels.sturm.kernel import _geometry
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for what, rows, n, m in (("spectrum", B, N, N), ("window", B, N, K),
+                             ("minor stack", B * N, N - 1, N - 1)):
+        cap, threads = _geometry(rows, n, m, 8, sms)
+        print(f"[build] sturm_bisect {what} {rows}x{m}: {cap} lanes and "
+              f"{threads} threads a block, {-(-m // cap)} block(s) a row")
 
     stack = _stack(torch, dev)
     kernels = _phase_kernels(torch, dev, stack)
@@ -178,6 +185,189 @@ def _events_ms(torch, fn, warmup: int, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: SASS opcode classes for the per-step counts (the opcode up to its first
+#: dot); anything else (branches, barriers, conversions) counts as "other".
+SASS_CLASSES = {
+    "fp64": {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"},
+    "fp32": {"FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FCHK",
+             "FSET"},
+    "mufu": {"MUFU"},
+    "integer": {"IADD3", "IADD", "VIADD", "IMAD", "IMUL", "ISETP", "LOP3",
+                "PLOP3", "SEL", "SHF", "LEA", "IMNMX", "VIMNMX", "IABS",
+                "PRMT", "MOV", "FLO", "POPC", "BMSK", "SGXT", "P2R", "R2P"},
+    "memory": {"LDS", "STS", "LDG", "STG", "LDL", "STL", "LDC", "ULDC",
+               "ATOMS", "LD", "ST"},
+}
+#: Kernel 1's and kernel 2's inner loops in the SASS: (label, mangled-name
+#: keys tried in order, the opcode that marks one recurrence step or one
+#: term, an opcode the loop must not hold).  A step has one IEEE divide (one
+#: reciprocal seed), a term one multiply into the running product; the
+#: prod-diff loop without a log (no MUFU) is the one-log-per-cell path.
+SASS_LOOPS = (
+    ("sturm_bisect float64, per step", ("sturm_bisect_kernelIdE",),
+     "MUFU.RCP64H", None),
+    ("sturm_bisect float32, per step", ("sturm_bisect_kernelIfE",),
+     "MUFU.RCP", None),
+    ("logabs_sum float64, per term", ("logabs_sum_kernelIdE",), "DMUL",
+     "MUFU"),
+    ("logabs_sum float32, per term", ("logabs_sum_kernelIfE",), "FMUL",
+     "MUFU"),
+)
+
+
+def _cuda_tool(name):
+    """Path of a CUDA toolkit program, or None."""
+    import os
+    import shutil
+
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for path in ([Path(home) / "bin" / name] if home else []) + [
+            Path(shutil.which(name) or "/nonexistent"),
+            Path("/usr/local/cuda/bin") / name]:
+        if path.is_file():
+            return str(path)
+    return None
+
+
+def _kernel_short(mangled):
+    """``sturm_bisect_kernel<double, 1>`` from a mangled kernel name."""
+    import re
+
+    m = re.search(r"([a-z_]+_kernel)I([fd])(?:Li(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    args = ["double" if m.group(2) == "d" else "float"] + (
+        [m.group(3)] if m.group(3) else [])
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def _ptxas_summary(report):
+    """Per kernel of ``nvcc -Xptxas -v``'s report: registers, static shared
+    memory, stack frame and spill bytes."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_short(m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
+        if m:
+            out[name].update(registers=int(m.group(1)),
+                             smem=int(m.group(2) or 0))
+    return out
+
+
+def _sass_loop(sass, keys, marker, without=None):
+    """Instructions per ``marker`` by class in the innermost loop (a
+    backward branch) around the most ``marker`` opcodes, and no opcode
+    starting with ``without``, of the first kernel whose mangled name holds
+    one of ``keys``; None if there is none."""
+    import re
+
+    functions, body, pending = {}, None, []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            body = functions.setdefault(m.group(1), [])
+            continue
+        if body is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m:
+            t = re.search(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b", m.group(3))
+            target = None
+            if t:
+                target = t.group(1) or int(t.group(2), 16)
+            body.append((int(m.group(1), 16), m.group(2), target, pending))
+            pending = []
+    body = next((functions[f] for key in keys for f in functions if key in f),
+                None)
+    if body is None:
+        return None
+    index = {addr: i for i, (addr, *_rest) in enumerate(body)}
+    index.update({lab: i for i, x in enumerate(body) for lab in x[3]})
+    loops = []
+    for i, (_, op, target, _) in enumerate(body):
+        lo = index.get(target) if op.startswith("BRA") else None
+        if lo is not None and lo < i:
+            n_mark = sum(1 for x in body[lo:i + 1] if x[1] == marker)
+            if n_mark and not (without and any(
+                    x[1].startswith(without) for x in body[lo:i + 1])):
+                loops.append((lo, i, n_mark))
+    inner = [a for a in loops if not any(
+        b != a and a[0] <= b[0] and b[1] <= a[1] for b in loops)]
+    if not inner:
+        return None
+    lo, hi, n_mark = max(inner, key=lambda a: (a[2], a[0] - a[1]))
+    # The fast path: a predicated forward branch inside the loop skips a
+    # slow path (the IEEE divide's call for out-of-range operands), which is
+    # not counted.
+    skipped = set()
+    for i in range(lo, hi + 1):
+        _, op, target, _ = body[i]
+        j = index.get(target) if op.startswith("BRA") else None
+        if j is not None and i < j <= hi:
+            skipped.update(range(i + 1, j))
+    counts = {c: 0 for c in (*SASS_CLASSES, "other")}
+    for i in range(lo, hi + 1):
+        if i in skipped:
+            continue
+        op = body[i][1].split(".")[0]
+        cls = next((c for c, ops in SASS_CLASSES.items() if op in ops),
+                   "other")
+        counts[cls] += 1
+    counts["total"] = sum(counts.values())
+    return {c: v / n_mark for c, v in counts.items()} | {
+        "static": (hi + 1 - lo) / n_mark, "unrolled": n_mark}
+
+
+def _kernel_report(build, tag="build"):
+    """Print the ptxas figures of every kernel and the SASS counts of
+    kernels 1 and 2's inner loops; returns both."""
+    report = build.library_dir() / "ptxas.txt"
+    ptxas = _ptxas_summary(report.read_text()) if report.is_file() else {}
+    for name, v in ptxas.items():
+        print(f"[{tag}] ptxas {name}: {v.get('registers')} registers, "
+              f"{v.get('smem')} B static shared memory, {v.get('stack')} B "
+              f"stack, spills {v.get('spill_stores')} B stored / "
+              f"{v.get('spill_loads')} B loaded")
+    tool = _cuda_tool("cuobjdump")
+    sass = {}
+    if tool is None:
+        print(f"[{tag}] SASS counts: not measured (no cuobjdump)")
+        return ptxas, sass
+    text = subprocess.run(
+        [tool, "-sass", str(build.library_dir() / build.LIB_NAME)],
+        capture_output=True, text=True, timeout=300).stdout
+    (build.library_dir() / "sass.txt").write_text(text)
+    for label, keys, marker, without in SASS_LOOPS:
+        sass[label] = _sass_loop(text, keys, marker, without)
+        if sass[label] is None:
+            print(f"[{tag}] SASS {label}: not measured (loop not found)")
+            continue
+        print(f"[{tag}] SASS {label} (inner loop, {sass[label]['unrolled']} "
+              f"per pass; fast path, and all instructions as 'static'): "
+              + ", ".join(f"{c} {v:.2f}" for c, v in sass[label].items()
+                          if c != "unrolled"))
+    return ptxas, sass
 
 
 def _device_ms(torch, fn):
@@ -232,7 +422,8 @@ def _phase_kernels(torch, dev, stack):
             lo, hi = gershgorin_bounds(dd, ee)
             return torch.stack([lo, hi, _pivmin(dd, ee)], dim=-1)
 
-        # Sturm, full spectrum (B, N).
+        # Sturm, full spectrum (B, N), and the k = K window, each bitwise its
+        # plain version.
         bnd = bounds_of(d, e)
         args = dict(target_base=0, m=N, n_iter=iters)
         lam = st_kernel.sturm_bisect(d, e, bnd, **args)
@@ -241,15 +432,22 @@ def _phase_kernels(torch, dev, stack):
         lam_plain = st_kernel.sturm_bisect_plain(d, e, bnd, **args)
         torch.cuda.synchronize()
         spec_plain_ms = (time.perf_counter() - t) * 1e3
-        spec_err = _max_err(torch, lam, lam_plain, *TOL[("sturm", name)],
-                            f"sturm spectrum {name}")
-        win = st_ops.sturm_eigenvalues(d, e, window=(K, True))
-        check(torch.equal(win, st_ops.sturm_eigenvalues(d, e)[:, -K:]),
+        check(torch.equal(lam, lam_plain),
+              f"sturm spectrum {name}: kernel != plain version")
+        wargs = dict(target_base=N - K, m=K, n_iter=iters)
+        win = st_kernel.sturm_bisect(d, e, bnd, **wargs)
+        win_plain, win_plain_ms = _plain_ms(
+            torch, lambda: st_kernel.sturm_bisect_plain(d, e, bnd, **wargs))
+        check(torch.equal(win, win_plain),
+              f"sturm window {name}: kernel != plain version")
+        check(torch.equal(st_ops.sturm_eigenvalues(d, e, window=(K, True)),
+                          st_ops.sturm_eigenvalues(d, e)[:, -K:]),
               f"sturm window != slice of the full spectrum ({name})")
-        print(f"[kernels] sturm spectrum {name} ({B}, {N}): max abs err "
-              f"{spec_err:.3e}; window (k={K}) bitwise-equal to the slice")
+        print(f"[kernels] sturm spectrum {name} ({B}, {N}) and window ({B}, "
+              f"{K}): bitwise-equal to the plain version; the window "
+              f"bitwise-equal to the slice")
 
-        # Sturm, all stacked minor bands (B*N, N-1), every row checked.
+        # Sturm, all stacked minor bands (B*N, N-1), every row bitwise.
         dm, em = minors.all_tridiagonal_minor_bands(d, e)
         dm = dm.reshape(B * N, N - 1).contiguous()
         em = em.reshape(B * N, N - 2).contiguous()
@@ -261,10 +459,15 @@ def _phase_kernels(torch, dev, stack):
         mu_plain = st_kernel.sturm_bisect_plain(dm, em, mbnd, **margs)
         torch.cuda.synchronize()
         minor_plain_ms = (time.perf_counter() - t) * 1e3
-        minor_err = _max_err(torch, mu, mu_plain, *TOL[("sturm", name)],
-                             f"sturm minor spectra {name}")
-        print(f"[kernels] sturm minor spectra {name} ({B * N}, {N - 1}), all "
-              f"rows: max abs err {minor_err:.3e}")
+        check(torch.equal(mu, mu_plain),
+              f"sturm minor spectra {name}: kernel != plain version on "
+              f"{int((mu != mu_plain).any(dim=1).sum())} rows")
+        print(f"[kernels] sturm minor spectra {name} ({B * N}, {N - 1}): all "
+              f"rows bitwise-equal to the plain version")
+        spec_err, win_err, minor_err = (
+            float((got - ref).abs().max())
+            for got, ref in ((lam, lam_plain), (win, win_plain),
+                             (mu, mu_plain)))
 
         # Prod-diff numerator table (B, N, N, N-1).
         mu = mu.reshape(B, N, N - 1)
@@ -283,14 +486,53 @@ def _phase_kernels(torch, dev, stack):
               f"windowed prod-diff rows != full-table rows ({name})")
         print(f"[kernels] prod_diff {name} ({B}, {N}, {N}, {N - 1}): max abs "
               f"err {pd_err:.3e}; windowed rows bitwise-equal to the table")
+        ext_err = _prod_diff_extremes(torch, dev, dtype, name)
 
         out[name] = dict(
             d=d, e=e, bnd=bnd, dm=dm, em=em, mbnd=mbnd, lam=lam, mu=mu,
             floor=floor, iters=iters,
-            err={"spectrum": spec_err, "minor": minor_err, "prod_diff": pd_err},
+            err={"spectrum": spec_err, "minor": minor_err, "window": win_err,
+                 "prod_diff": pd_err, "prod_diff_extremes": ext_err},
             plain_ms={"spectrum": spec_plain_ms, "minor": minor_plain_ms,
-                      "prod_diff": pd_plain_ms})
+                      "window": win_plain_ms, "prod_diff": pd_plain_ms})
     return out
+
+
+def _prod_diff_extremes(torch, dev, dtype, name):
+    """The prod-diff kernel against its plain version on terms that run
+    from the floor up to ~1e300 (1e30 in float32): magnitudes from 1e-30
+    up, both signs, exact and near coincidences with ``lam``; also with a
+    floor far below every term."""
+    import numpy as np
+
+    from repro_torch.core.identity import spectral_floor
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+
+    rng = np.random.default_rng(SEED + 5)
+    top = 300 if name == "float64" else 30
+    b, i_n, j_n = 4, 40, 70
+
+    def draw(shape):
+        return np.sign(rng.standard_normal(shape)) * 10.0 ** rng.uniform(
+            -30, top, shape)
+
+    lam = np.sort(draw((b, i_n)), -1)
+    mu = draw((b, j_n, N - 1))
+    mu[:, :, :3] = lam[:, None, :3]
+    mu[:, :, 3:6] = lam[:, None, :3] * (1 + 1e-12)
+    lam = torch.as_tensor(lam, dtype=dtype, device=dev)
+    mu = torch.as_tensor(mu, dtype=dtype, device=dev)
+    worst = 0.0
+    for floor in (spectral_floor(lam).contiguous(),
+                  torch.full((b,), torch.finfo(dtype).tiny * 4, dtype=dtype,
+                             device=dev)):
+        got = pd_kernel.logabs_sum(lam, mu, floor)
+        worst = max(worst, _max_err(
+            torch, got, pd_kernel.logabs_sum_plain(lam, mu, floor),
+            *TOL[("prod_diff", name)], f"prod_diff {name} extreme scales"))
+    print(f"[kernels] prod_diff {name} ({b}, {i_n}, {j_n}, {N - 1}), terms "
+          f"from the floor to ~1e{top}: max abs err {worst:.3e}")
+    return worst
 
 
 def _check_solve(torch, a, res, name):
@@ -502,6 +744,17 @@ def _phase_timing(torch, dev, stack, kernels, counts):
             plain_ms=kd["plain_ms"]["spectrum"], bound_ms=bound, bound_by=by,
             library_ms=lib_ms, **st_launches))
 
+        # Sturm, the k = K window (windowed topk, eigenvalues(k)); the same
+        # yardstick, which computes the whole spectrum.
+        ms = _events_ms(torch, lambda: sturm_bisect(
+            kd["d"], kd["e"], kd["bnd"], target_base=N - K, m=K,
+            n_iter=iters), warmup=2, reps=20)
+        bound, by = _sturm_cost(B, N, K, iters, elsize, name)
+        records.append(_record(
+            f"sturm_bisect[window {B}x{K} {name}]", "sturm",
+            err=kd["err"]["window"], ms=ms, plain_ms=kd["plain_ms"]["window"],
+            bound_ms=bound, bound_by=by, library_ms=lib_ms, **st_launches))
+
         # Sturm, all stacked minor bands; yardstick: eigvalsh of the dense
         # minor tridiagonals, in row chunks of at most LIBRARY_CHUNK_BYTES.
         ms = _events_ms(torch, lambda: sturm_bisect(
@@ -591,7 +844,7 @@ def _phase_timing(torch, dev, stack, kernels, counts):
 
 def _print_record(r):
     library = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-    print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
+    print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4g}"
           f" ms by {r['bound_by']}; plain {r['plain_ms']:.1f} ms; library "
           f"{library})")
 
@@ -1072,7 +1325,8 @@ def _phase_session(torch, dev, stack):
             _split_update(torch, dev, engine, session, rng, small, name)
             out[name] = dict(counts=counts, stats=stats, latency=lat,
                              reseeds=[r["stage"] for r in mine],
-                             launches_per_update=stream_seg / SESSION_STREAM)
+                             launches_per_update=stream_seg / SESSION_STREAM,
+                             seg_call=seg_calls[-1])
     finally:
         session_mod.host_reseed = host_reseed
     return out
@@ -1115,6 +1369,7 @@ def _phase_timing_other_kernels(torch, dev, kernels, segmented, variants, op_cou
     beside their bounds, plain versions and library yardsticks."""
     from repro_torch.kernels.prod_diff import kernel as pd_kernel
     from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.linalg.householder import tridiagonal_matrix
 
     records = []
     for name, kd in kernels.items():
@@ -1148,6 +1403,34 @@ def _phase_timing_other_kernels(torch, dev, kernels, segmented, variants, op_cou
             launches=sessions[name]["counts"]["sturm_segmented"],
             err=sg["err"], ms=ms, plain_ms=sg["plain_ms"], bound_ms=bound,
             bound_by=by, library_ms=lib_ms,
+            launches_per_update=sessions[name]["launches_per_update"]))
+
+        # Kernel 3 alone at the shape the session launches it: the last
+        # stream update's band and lanes (bitwise its plain version, checked
+        # in the session phase); yardstick: eigvalsh of the dense band.
+        d1, e1, lanes1, it1, got1 = sessions[name]["seg_call"]
+        rows1, n1 = d1.shape
+        m1 = lanes1["lo"].shape[1]
+        ms = _events_ms(torch, lambda: st_kernel.sturm_segmented(
+            d1, e1, **lanes1, n_iter=it1), warmup=5, reps=200)
+        plain1, plain_ms = _plain_ms(
+            torch, lambda: st_kernel.sturm_segmented_plain(d1, e1, **lanes1,
+                                                           n_iter=it1))
+        seg_steps = int((lanes1["end"] - lanes1["start"]).sum())
+        ops = seg_steps * it1 * (STURM_OPS_PER_STEP + SEGMENT_COMPARE_OPS)
+        nbytes = ((rows1 * n1 + rows1 * (n1 - 1) + 4 * rows1 * m1) * elsize
+                  + 3 * rows1 * m1 * 4)
+        bound, by = _bound(ops, nbytes, name)
+        dense = tridiagonal_matrix(d1, e1)
+        lib_ms = _events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
+                            warmup=2, reps=20)
+        records.append(_record(
+            f"sturm_segmented[session band {rows1}x{n1}, {m1} lanes {name}]",
+            "sturm_segmented",
+            launches=sessions[name]["counts"]["sturm_segmented"],
+            err=float((got1 - plain1).abs().max()), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms,
             launches_per_update=sessions[name]["launches_per_update"]))
 
         vd = variants[name]

@@ -35,8 +35,8 @@ _I = ctypes.c_int
 #: C entry points: name -> argument types (every one returns a CUDA error
 #: code, 0 on success).
 SIGNATURES = {
-    "sturm_bisect_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "sturm_bisect_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "sturm_bisect_f32": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
+    "sturm_bisect_f64": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     "sturm_segmented_f32": (_P,) * 9 + (_I, _I, _I, _I, _P),
     "sturm_segmented_f64": (_P,) * 9 + (_I, _I, _I, _I, _P),
     "logabs_sum_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

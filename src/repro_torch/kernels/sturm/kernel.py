@@ -53,6 +53,50 @@ def _check(d, e, bounds, target_base, m, n_iter):
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
 
 
+#: Most threads a block of ``csrc/sturm.cu`` takes (its ``kMaxThreads``),
+#: and the most tree levels one of its rounds evaluates (``kMaxDepth``).
+_MAX_THREADS = 640
+_MAX_DEPTH = 3
+#: Least lanes per block when a small launch splits its rows' lanes.
+_MIN_LANES_PER_BLOCK = 8
+
+
+def _shared_bytes(n: int, cap: int, threads: int, elsize: int) -> int:
+    """Shared memory of one block of ``csrc/sturm.cu``: the band (``d``,
+    ``e^2``), two bracket lists of ``cap`` entries, one round's counts and
+    the two list counters."""
+    return (2 * n * elsize + 4 * cap * elsize
+            + (4 * cap + max(cap, threads)) * 4 + 8)
+
+
+def _geometry(rows: int, n: int, m: int, elsize: int, sms: int):
+    """``(cap, threads)`` of a launch: lanes and threads per block.
+
+    A stack of at least three rows per SM fills the card with one block per
+    row and one thread per lane.  A smaller launch is bound by the latency
+    of the recurrence rather than by the card's throughput: it splits each
+    row's lanes over enough blocks to give every SM two, with threads for
+    the ``2^3 - 1`` evaluations of three tree levels a round.  The lanes per
+    block shrink until the block's shared memory fits.  Every geometry
+    gives the same bits.
+    """
+    if rows >= 3 * sms:
+        parts, per_lane = 1, 1
+    else:
+        parts = max(1, min(-(-m // _MIN_LANES_PER_BLOCK), -(-2 * sms // rows)))
+        per_lane = (1 << _MAX_DEPTH) - 1
+    cap = -(-m // parts)
+
+    def threads_for(cap):
+        return min(_MAX_THREADS, 32 * -(-cap * per_lane // 32))
+
+    while _shared_bytes(n, cap, threads_for(cap), elsize) > _MAX_SHARED_BYTES:
+        if cap == 1:
+            raise ValueError(f"band n={n} does not fit one block's shared memory")
+        cap = -(-cap // 2)
+    return cap, threads_for(cap)
+
+
 def sturm_bisect(d: torch.Tensor, e: torch.Tensor, bounds: torch.Tensor, *,
                  target_base: int, m: int, n_iter: int) -> torch.Tensor:
     """Eigenvalues ``target_base .. target_base + m - 1`` of each band.
@@ -69,13 +113,13 @@ def sturm_bisect(d: torch.Tensor, e: torch.Tensor, bounds: torch.Tensor, *,
     if not (d.is_contiguous() and e.is_contiguous() and bounds.is_contiguous()):
         raise ValueError("sturm_bisect needs contiguous d, e and bounds")
     rows, n = d.shape
-    if 2 * n * d.element_size() > _MAX_SHARED_BYTES:
-        raise ValueError(f"band n={n} does not fit one block's shared memory")
     out = torch.empty((rows, m), dtype=d.dtype, device=d.device)
     if rows == 0 or m == 0:
         return out
+    sms = torch.cuda.get_device_properties(d.device).multi_processor_count
+    geometry = _geometry(rows, n, m, d.element_size(), sms)
     build.launch(_ENTRY[d.dtype], d.device, d, e, bounds, out, rows, n, m,
-                 target_base, n_iter)
+                 target_base, n_iter, *geometry)
     sturm_bisect.launches += 1
     return out
 

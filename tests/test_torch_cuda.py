@@ -255,3 +255,101 @@ def test_wrappers_raise_on_a_refused_launch(cuda_device):
     bounds = torch.zeros((1, 3), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         st_kernel.sturm_bisect(d, e, bounds, target_base=0, m=1, n_iter=1)
+
+
+def _degenerate_bands(dtype, device):
+    """Bands that stress the bisection tree of kernel 1: repeated
+    eigenvalues (copies of one block), e = 0 with repeated diagonal entries,
+    n = 1, Wilkinson W+ (close pairs) and graded entries, each at scales
+    from 1e-30 up (to 1e30 in float64; to 1e15 in float32, past which e^2
+    overflows float32)."""
+    rng = np.random.default_rng(17)
+    n = 24
+    blk = rng.standard_normal(8)
+    blk_e = np.append(rng.standard_normal(7), 0.0)
+    cases = [
+        (np.tile(blk, 3), np.tile(blk_e, 3)[:n - 1]),
+        (rng.integers(-2, 3, n).astype(float), np.zeros(n - 1)),
+        (np.abs(np.arange(n) - (n - 1) / 2), np.ones(n - 1)),
+        (rng.standard_normal(n) * 10.0 ** rng.uniform(-8, 8, n),
+         rng.standard_normal(n - 1) * 10.0 ** rng.uniform(-8, 0, n - 1)),
+        (np.full(n, 3.0), np.zeros(n - 1)),
+    ]
+    top = 30 if dtype == torch.float64 else 15
+    d = np.stack([c[0] * s for c in cases for s in (1e-30, 1.0, 10.0 ** top)])
+    e = np.stack([c[1] * s for c in cases for s in (1e-30, 1.0, 10.0 ** top)])
+    return (torch.as_tensor(d, dtype=dtype, device=device),
+            torch.as_tensor(e, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sturm_kernel_is_bitwise_on_degenerate_bands(cuda_device, dtype):
+    """Kernel 1 against its plain version, bitwise, on degenerate bands, in
+    both of its geometries (a small launch splits lanes over blocks and
+    takes three levels a round; a stack of many rows takes one block a
+    row), for the full spectrum and windows at both ends, and for n = 1."""
+    d, e = _degenerate_bands(dtype, cuda_device)
+    iters = 64 if dtype == torch.float64 else 32
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    big = 3 * sms // d.shape[0] + 1
+    stacks = {"small": (d, e), "large": (d.repeat(big, 1).contiguous(),
+                                         e.repeat(big, 1).contiguous())}
+    n = d.shape[1]
+    for what, (dd, ee) in stacks.items():
+        lo, hi = gershgorin_bounds(dd, ee)
+        bounds = torch.stack([lo, hi, _pivmin(dd, ee)], dim=-1)
+        for base, m in ((0, n), (0, 5), (n - 5, 5), (7, 9)):
+            kw = dict(target_base=base, m=m, n_iter=iters)
+            got = st_kernel.sturm_bisect(dd, ee, bounds, **kw)
+            ref = st_kernel.sturm_bisect_plain(dd, ee, bounds, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (what, base, m)
+    one = torch.full((3, 1), -2.5, dtype=dtype, device=cuda_device)
+    none = torch.zeros((3, 0), dtype=dtype, device=cuda_device)
+    lo, hi = gershgorin_bounds(one, none)
+    bounds = torch.stack([lo, hi, _pivmin(one, none)], dim=-1)
+    kw = dict(target_base=0, m=1, n_iter=iters)
+    assert torch.equal(st_kernel.sturm_bisect(one, none, bounds, **kw),
+                       st_kernel.sturm_bisect_plain(one, none, bounds, **kw))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prod_diff_kernel_at_extreme_scales(cuda_device, dtype):
+    """Kernel 2 (one log per cell) within its tolerance of the sum of logs
+    on terms from the floor up to ~1e300 (1e30 in float32), with the
+    spectral floor, a floor far below every term, and a zero floor (which
+    takes the per-term log); masked trailing terms give bitwise the
+    unmasked kernel on the prefix."""
+    rng = np.random.default_rng(23)
+    top = 300 if dtype == torch.float64 else 30
+
+    def draw(shape):
+        return np.sign(rng.standard_normal(shape)) * 10.0 ** rng.uniform(
+            -30, top, shape)
+
+    lam = np.sort(draw((3, 40)), -1)
+    mu = draw((3, 37, 70))
+    mu[:, :, :3] = lam[:, None, :3]
+    mu[:, :, 3:6] = lam[:, None, :3] * (1 + 1e-12)
+    lam = torch.as_tensor(lam, dtype=dtype, device=cuda_device)
+    mu = torch.as_tensor(mu, dtype=dtype, device=cuda_device)
+    tol = TOL[dtype]["prod_diff"]
+    for floor in (pd_ops._floor_from_spectra(lam).contiguous(),
+                  torch.full((3,), torch.finfo(dtype).tiny * 4, dtype=dtype,
+                             device=cuda_device)):
+        _close(pd_kernel.logabs_sum(lam, mu, floor),
+               pd_kernel.logabs_sum_plain(lam, mu, floor), tol)
+    floor = pd_ops._floor_from_spectra(lam).contiguous()
+    for k_valid in (1, 31, 32, 33, 64):
+        mask = torch.zeros(mu.shape, dtype=torch.bool, device=cuda_device)
+        mask[:, :, :k_valid] = True
+        got = pd_kernel.logabs_sum_masked(lam, mu, mask, floor)
+        ref = pd_kernel.logabs_sum(lam, mu[:, :, :k_valid].contiguous(),
+                                   floor)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), k_valid
+    # A zero floor takes the per-term log.
+    zero = torch.zeros((3,), dtype=dtype, device=cuda_device)
+    got = pd_kernel.logabs_sum(lam, mu[:, :, 6:].contiguous(), zero)
+    ref = pd_kernel.logabs_sum_plain(lam, mu[:, :, 6:].contiguous(), zero)
+    _close(got, ref, tol)
