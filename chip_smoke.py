@@ -38,15 +38,26 @@ Phases, each of which fails the run (non-zero exit) on error:
    re-solve, with no verify re-solve; the host rung may run only for a
    float32 re-solve after a large update, and only where the card's own
    re-solve of that matrix fails verify;
-6. time each kernel (CUDA events) beside its bound, its plain version and
+6. run the packed top-k program (``packed_topk_program(packed_plan_for(
+   512), 8, largest=True, verify=True)``) on 64 rows packing 16 seeded
+   requests of n = 32 each, in float64 and float32: one kernel-3 launch a
+   call, bitwise its plain version on the program's own operands; every
+   slot within 5e-4 * max(1, |lambda|max) of float64 eigvalsh of its
+   request; every per-slot verify flag ok, but for float32 slots that miss
+   only the in-segment mass (as repro's chain does); its wall time beside
+   ``torch.linalg.eigh`` of the (1024, 32, 32) requests, split by stage;
+   and the eigh chain the same way at the server's default width 64;
+7. time each kernel (CUDA events) beside its bound, its plain version and
    the library yardstick (the Sturm kernel also on the k = 8 window, the
-   segmented kernel also alone at the shape the session launches it), split
-   one solve into its stages, and time the end-to-end solve against
+   segmented kernel also alone at the shapes the session and the packed
+   program launch it, there also by its card time in a CUDA graph),
+   split one solve into its stages, and time the end-to-end solve against
    ``torch.linalg.eigh`` and the session update against a top-k from
    scratch.
 
-Every launch count is set to 0 just before each of phases 3, 4 and 5 and
-read just after, and a kernel that its path did not launch fails the run.
+Every launch count is set to 0 just before each of phases 3, 4, 5 and 6
+(each run of the packed program) and read just after, and a kernel that
+its path did not launch fails the run.
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 TF32 is off for matmul and cuDNN throughout, so float32 products run in
@@ -99,6 +110,15 @@ SEGMENT_COMPARE_OPS = 2
 #: within SESSION_TOL of the spectral span of float64 eigvalsh.
 SESSION_WARMUP, SESSION_STREAM, SESSION_BIG = 2, 32, 2
 SESSION_TOL = 5e-3
+#: The packed program (repro's engine/autotune.py:430-448 layout): PACK_B
+#: rows (the server's max_batch) of width PACK_ROW_N, each packing
+#: PACK_ROW_N / PACK_SEG_N seeded symmetric requests of n = PACK_SEG_N
+#: (PACK_N_MAX, the largest packable); the eigh chain once at the server's
+#: default width PACK_EIGH_ROW_N.  Each slot's eigenvalues within
+#: PACK_TOL * max(1, |lambda|max) of float64 eigvalsh of its own request
+#: (tests/test_server.py:1118-1145).
+PACK_B, PACK_ROW_N, PACK_SEG_N, PACK_EIGH_ROW_N = 64, 512, 32, 64
+PACK_TOL = 5e-4
 
 
 class PhaseError(RuntimeError):
@@ -140,6 +160,16 @@ def main() -> int:
         cap, threads = _geometry(rows, n, m, 8, sms)
         print(f"[build] sturm_bisect {what} {rows}x{m}: {cap} lanes and "
               f"{threads} threads a block, {-(-m // cap)} block(s) a row")
+    from repro_torch.kernels.sturm.kernel import _segmented_geometry
+    for what, rows, n, m, seg in (
+            ("synthetic packed", B * N // SEG_S, SEG_S * (N - 1), SEG_S * K, K),
+            ("session", 1, 16, 12, 0),
+            ("packed program", PACK_B, PACK_ROW_N,
+             PACK_ROW_N // PACK_SEG_N * K, K)):
+        cap, threads, window = _segmented_geometry(rows, n, m, seg, 8, sms)
+        print(f"[build] sturm_segmented {what} {rows}x{n}, {m} lanes a row "
+              f"(float64): {cap} lanes and {threads} threads a block, a "
+              f"window of {window} columns")
 
     stack = _stack(torch, dev)
     kernels = _phase_kernels(torch, dev, stack)
@@ -148,9 +178,13 @@ def main() -> int:
     counts = _phase_engine(torch, dev, stack)
     op_counts = _phase_ops(torch, dev, kernels)
     sessions = _phase_session(torch, dev, stack)
+    packed = _phase_packed(torch, dev)
     records = _phase_timing(torch, dev, stack, kernels, counts)
     records += _phase_timing_other_kernels(torch, dev, kernels, segmented, variants,
                                  op_counts, sessions)
+    for name, pk in packed.items():
+        records.append(_packed_record(torch, dev, name, pk))
+        _print_record(records[-1])
 
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(
@@ -844,9 +878,11 @@ def _phase_timing(torch, dev, stack, kernels, counts):
 
 def _print_record(r):
     library = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-    print(f"[timing] {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4g}"
-          f" ms by {r['bound_by']}; plain {r['plain_ms']:.1f} ms; library "
-          f"{library})")
+    card = (f", card time {r['device_ms']:.4f} ms" if "device_ms" in r
+            else "")
+    print(f"[timing] {r['name']}: {r['ms']:.4f} ms{card} (bound "
+          f"{r['bound_ms']:.4g} ms by {r['bound_by']}; plain "
+          f"{r['plain_ms']:.1f} ms; library {library})")
 
 
 def _minor_library_ms(torch, kd):
@@ -902,6 +938,38 @@ def _pack(torch, d, e, seg):
     return dp, ep, off, length
 
 
+def _packed_layout(batch, row_n, seg_n, seed):
+    """A uniform packed stack with numpy: ``row_n // seg_n`` seeded
+    symmetric requests ``a (batch * slots, seg_n, seg_n)`` a row, the
+    block-diagonal rows ``(batch, row_n, row_n)`` and the layout ``off``,
+    ``length`` ``(batch, slots)``."""
+    import numpy as np
+
+    slots = row_n // seg_n
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((batch * slots, seg_n, seg_n))
+    a = (a + np.swapaxes(a, 1, 2)) / 2
+    rows = np.zeros((batch, row_n, row_n))
+    for b in range(batch):
+        for s in range(slots):
+            o = s * seg_n
+            rows[b, o:o + seg_n, o:o + seg_n] = a[b * slots + s]
+    off = np.tile(np.arange(slots, dtype=np.int32) * seg_n, (batch, 1))
+    length = np.full((batch, slots), seg_n, np.int32)
+    return a, rows, off, length
+
+
+def _packed_program_bands(torch, dev, dtype, householder):
+    """The bands and layout of the packed program's kernel-3 launch: the
+    Householder bands of the packed rows (zero junctions)."""
+    _, rows, off, length = _packed_layout(PACK_B, PACK_ROW_N, PACK_SEG_N,
+                                          SEED + 7)
+    d, e, _ = householder.tridiagonalize(
+        torch.as_tensor(rows, dtype=dtype, device=dev), with_q=False)
+    return (d.contiguous(), e.contiguous(), torch.as_tensor(off, device=dev),
+            torch.as_tensor(length, device=dev))
+
+
 def _plain_ms(torch, fn):
     """One call of a plain version on the card: its result and wall ms."""
     torch.cuda.synchronize()
@@ -928,7 +996,8 @@ def _phase_segmented(torch, dev, stack, kernels):
         tol = TOL[("sturm", name)]
 
         def both(dd, ee, lanes):
-            got = st_kernel.sturm_segmented(dd, ee, **lanes, n_iter=iters)
+            got = st_kernel.sturm_segmented(dd, ee, **lanes, n_iter=iters,
+                                            segment_lanes=K)
             plain, ms = _plain_ms(
                 torch, lambda: st_kernel.sturm_segmented_plain(
                     dd, ee, **lanes, n_iter=iters))
@@ -1022,6 +1091,210 @@ def _phase_segmented(torch, dev, stack, kernels):
         out[name] = dict(dm=dmp, em=emp, lanes=lanes, got=mgot, iters=iters,
                          err=plain_err, plain_ms=plain_ms)
     return out
+
+
+def _kernel_device_ms(torch, fn, reps=20):
+    """The card's time of one call of ``fn``, apart from the host's time to
+    issue it: ``reps`` calls captured in one CUDA graph, replayed between
+    two CUDA events (median of 5 replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[2]
+
+
+def _phase_packed(torch, dev):
+    """The packed top-k program through its entry points: PACK_B rows of
+    PACK_ROW_N packing requests of n = PACK_SEG_N (the windowed tridiagonal
+    chain and kernel 3), and the eigh chain at PACK_EIGH_ROW_N, in float64
+    and float32.  Kernel 3's launch is held bitwise against its plain
+    version on the program's own operands, every slot against float64
+    eigvalsh of its request, and the per-slot verify flags are read."""
+    from repro_torch import packed_plan_for, packed_topk_program
+    from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.kernels.sturm import ops as st_ops
+
+    out = {}
+    for name in ("float64", "float32"):
+        dtype = getattr(torch, name)
+        for row_n in (PACK_ROW_N, PACK_EIGH_ROW_N):
+            tridiag = row_n > 128
+            a, rows, off, length = _packed_layout(PACK_B, row_n, PACK_SEG_N,
+                                                  SEED + 7)
+            plan = packed_plan_for(row_n)
+            want = ("eei_tridiag", "windowed") if tridiag else ("eigh", "full")
+            check((plan.method, plan.spectrum, plan.backend) == want + ("cuda",),
+                  f"packed_plan_for({row_n}) picked {plan}")
+            prog = packed_topk_program(plan, K, True, verify=True)
+            rows_t = torch.as_tensor(rows, dtype=dtype, device=dev)
+            off_t = torch.as_tensor(off, device=dev)
+            len_t = torch.as_tensor(length, device=dev)
+            what = (f"packed {name} {PACK_B}x{row_n}, {off.shape[1]} requests "
+                    f"of n={PACK_SEG_N} a row, k={K} ({plan.method} chain)")
+
+            # The program once, with the counts set to 0 just before and
+            # read just after; kernel 3's operands captured as the session
+            # phase captures them.
+            seg_calls = []
+            seg = st_ops.sturm_segmented
+
+            def capturing(d, e, *, n_iter, **lanes):
+                got = seg(d, e, **lanes, n_iter=n_iter)
+                seg_calls.append((d, e, lanes, n_iter, got))
+                return got
+
+            st_ops.sturm_segmented = capturing
+            try:
+                _reset_counts()
+                res, flags = prog(rows_t, off_t, len_t)
+                torch.cuda.synchronize()
+                counts = _read_counts()
+            finally:
+                st_ops.sturm_segmented = seg
+            print(f"[packed] {what}: launches {counts}")
+            check(counts["sturm_segmented"] == (1 if tridiag else 0),
+                  f"{what}: {counts['sturm_segmented']} segmented Sturm "
+                  f"launches in one call")
+            check(len(seg_calls) == counts["sturm_segmented"],
+                  f"{what}: {len(seg_calls)} launches captured")
+            for d, e, lanes, n_iter, got in seg_calls:
+                check(torch.equal(got, st_kernel.sturm_segmented_plain(
+                    d, e, **lanes, n_iter=n_iter)),
+                    f"{what}: kernel 3 differs from its plain version on the "
+                    f"program's {tuple(d.shape)} band")
+
+            # Every slot against float64 eigvalsh of its own request.
+            ref = torch.linalg.eigvalsh(torch.as_tensor(a, device=dev))[:, -K:]
+            lam = res.eigenvalues.double().reshape(-1, K)
+            check(tuple(res.vectors.shape) == (PACK_B, off.shape[1], K, row_n)
+                  and bool(torch.isfinite(res.vectors).all()),
+                  f"{what}: vectors {tuple(res.vectors.shape)} or not finite")
+            scale = torch.clamp(ref.abs().amax(dim=-1, keepdim=True), min=1.0)
+            err = float(((lam - ref).abs() / scale).max())
+            check(err <= PACK_TOL, f"{what}: eigenvalue error {err:.3e} of "
+                  f"max(1, |lambda|max) > {PACK_TOL:g}")
+            # The per-slot flags: all ok, but for the in-segment mass of
+            # float32 slots of the tridiagonal chain, which repro's chain
+            # misses as well (tests/test_torch_packed.py): those slots must
+            # fail that check alone, as a server re-solves them.
+            check(bool((flags.finite & flags.residual_ok & flags.ordered)
+                       .all()), f"{what}: a slot failed finite, residual or "
+                  f"order: {flags}")
+            mass_misses = int((~flags.ok).sum())
+            if name == "float64" or not tridiag:
+                check(mass_misses == 0, f"{what}: {mass_misses} slots failed "
+                      f"verify")
+            else:
+                check(torch.equal(flags.ok, flags.norm_ok),
+                      f"{what}: a slot failed more than the mass check")
+            print(f"[packed] {what}: every slot within {err:.3e} of "
+                  f"max(1, |lambda|max) of eigvalsh of its request (limit "
+                  f"{PACK_TOL:g}); verify ok on {int(flags.ok.sum())} of "
+                  f"{flags.ok.numel()} slots ({mass_misses} missed only the "
+                  f"in-segment mass); worst residual "
+                  f"{float(flags.residual.max()):.3e} of the segment's norm"
+                  + ("; kernel 3 bitwise its plain version" if tridiag
+                     else ""))
+
+            # Wall time of the program (median of 5), launches a call, the
+            # eigh yardstick on the (requests, n, n) stack, and the stages.
+            a_t = torch.as_tensor(a, dtype=dtype, device=dev)
+            times = []
+            before = st_kernel.sturm_segmented.launches
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                prog(rows_t, off_t, len_t)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            per_call = (st_kernel.sturm_segmented.launches - before) / 5
+            check(per_call == (1 if tridiag else 0),
+                  f"{what}: {per_call} segmented launches a call")
+            torch.linalg.eigh(a_t)
+            eigh = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                torch.linalg.eigh(a_t)
+                torch.cuda.synchronize()
+                eigh.append((time.perf_counter() - t) * 1e3)
+            state = prog.initial_state(rows_t, off_t, len_t)
+            split = []
+            for sig, fn in prog.stages:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state.update(fn(state))
+                torch.cuda.synchronize()
+                split.append(f"{sig.name} {(time.perf_counter() - t) * 1e3:.3f}")
+            print(f"[packed] {what}: program {sorted(times)[2]:.3f} ms "
+                  f"(median of 5; {per_call:g} kernel-3 launch a call); "
+                  f"torch.linalg.eigh of the ({a.shape[0]}, {PACK_SEG_N}, "
+                  f"{PACK_SEG_N}) requests {sorted(eigh)[2]:.3f} ms; by stage "
+                  f"(ms): " + ", ".join(split))
+            if tridiag:
+                out[name] = dict(call=seg_calls[0], counts=counts,
+                                 program_ms=sorted(times)[2],
+                                 eigh_ms=sorted(eigh)[2])
+    return out
+
+
+def _packed_record(torch, dev, name, packed):
+    """Kernel 3's record at the packed program's launch: its own operands,
+    timed with CUDA events (and the card's kernel time), beside its bound,
+    its plain version and eigvalsh of the dense segment tridiagonals."""
+    from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.linalg.householder import tridiagonal_matrix
+
+    d, e, lanes, n_iter, got = packed["call"]
+    rows, n = d.shape
+    m = lanes["lo"].shape[1]
+    fn = lambda: st_kernel.sturm_segmented(d, e, **lanes, n_iter=n_iter)  # noqa: E731
+    ms = _events_ms(torch, fn, warmup=3, reps=50)
+    device_ms = _kernel_device_ms(torch, fn)
+    plain, plain_ms = _plain_ms(torch, lambda: st_kernel.sturm_segmented_plain(
+        d, e, **lanes, n_iter=n_iter))
+    seg_steps = int((lanes["end"] - lanes["start"]).sum())
+    ops = seg_steps * n_iter * (STURM_OPS_PER_STEP + SEGMENT_COMPARE_OPS)
+    nbytes = ((rows * n + rows * (n - 1) + 4 * rows * m) * d.element_size()
+              + 3 * rows * m * 4)
+    bound, by = _bound(ops, nbytes, name)
+    # The same function by the library: eigvalsh of every segment's dense
+    # tridiagonal, (rows * slots, PACK_SEG_N, PACK_SEG_N).
+    slots = n // PACK_SEG_N
+    dd = d.reshape(rows * slots, PACK_SEG_N)
+    ee = torch.cat([e, e.new_zeros((rows, 1))], dim=1).reshape(
+        rows * slots, PACK_SEG_N)[:, :-1]
+    dense = tridiagonal_matrix(dd, ee)
+    lib_ms = _events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
+                        warmup=2, reps=20)
+    lib_err = float((torch.linalg.eigvalsh(dense)[:, -K:]
+                     - got.reshape(rows * slots, K)).abs().max())
+    print(f"[timing] eigvalsh of the ({rows * slots}, {PACK_SEG_N}, "
+          f"{PACK_SEG_N}) segment tridiagonals {name}: {lib_ms:.4f} ms; max "
+          f"abs difference from kernel 3's lanes {lib_err:.3e}; kernel 3's "
+          f"card time {device_ms:.4f} ms a launch (CUDA graph)")
+    return _record(
+        f"sturm_segmented[packed program {rows}x{n} S={slots} k={K} {name}]",
+        "sturm_segmented", launches=packed["counts"]["sturm_segmented"],
+        err=float((got - plain).abs().max()), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=lib_ms, device_ms=device_ms,
+        program_ms=packed["program_ms"], eigh_ms=packed["eigh_ms"])
 
 
 def _phase_prod_diff_variants(torch, dev, kernels):
@@ -1379,7 +1652,8 @@ def _phase_timing_other_kernels(torch, dev, kernels, segmented, variants, op_cou
         rows, n_band = dmp.shape
         m = lanes["lo"].shape[1]
         ms = _events_ms(torch, lambda: st_kernel.sturm_segmented(
-            dmp, emp, **lanes, n_iter=iters), warmup=1, reps=3)
+            dmp, emp, **lanes, n_iter=iters, segment_lanes=K), warmup=1,
+            reps=3)
         # What any implementation must do: the steps inside each lane's own
         # segment, with the segment compare.
         seg_steps = int((lanes["end"] - lanes["start"]).sum())
@@ -1413,6 +1687,8 @@ def _phase_timing_other_kernels(torch, dev, kernels, segmented, variants, op_cou
         m1 = lanes1["lo"].shape[1]
         ms = _events_ms(torch, lambda: st_kernel.sturm_segmented(
             d1, e1, **lanes1, n_iter=it1), warmup=5, reps=200)
+        device_ms = _kernel_device_ms(torch, lambda: st_kernel.sturm_segmented(
+            d1, e1, **lanes1, n_iter=it1))
         plain1, plain_ms = _plain_ms(
             torch, lambda: st_kernel.sturm_segmented_plain(d1, e1, **lanes1,
                                                            n_iter=it1))
@@ -1430,7 +1706,7 @@ def _phase_timing_other_kernels(torch, dev, kernels, segmented, variants, op_cou
             launches=sessions[name]["counts"]["sturm_segmented"],
             err=float((got1 - plain1).abs().max()), ms=ms,
             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=lib_ms,
+            library_ms=lib_ms, device_ms=device_ms,
             launches_per_update=sessions[name]["launches_per_update"]))
 
         vd = variants[name]

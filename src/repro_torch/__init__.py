@@ -8,6 +8,7 @@ layout mirrors ``repro``'s: ``linalg`` and ``core`` hold plain PyTorch,
 """
 
 from repro_torch.engine import (  # noqa: F401
+    PackedTopkResult,
     Rank1Update,
     SessionConfig,
     SessionVerifyError,
@@ -17,7 +18,10 @@ from repro_torch.engine import (  # noqa: F401
     SpectralSession,
     TopkResult,
     VerifyFlags,
+    packed_plan_for,
+    packed_topk_program,
     plan_for,
     verify_topk,
     verify_topk_host,
+    verify_topk_packed,
 )

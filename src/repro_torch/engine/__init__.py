@@ -7,6 +7,10 @@
     lam, mags = engine.solve(stack)                 # (b, n), (b, n, n)
     top = engine.topk(stack, k=8)                   # (b, k), (b, k, n)
 
+    packed = packed_topk_program(packed_plan_for(512), k=8, largest=True,
+                                 verify=True)
+    res, flags = packed(rows, seg_off, seg_len)     # (b, S, k), (b, S)
+
     session = engine.open_session(a, k=8)           # one (n, n) matrix
     top = engine.update(session, Rank1Update(u, 1)) # A <- A + u u^T
 """
@@ -16,6 +20,7 @@ from repro_torch.engine.plan import (  # noqa: F401
     Method,
     SolverPlan,
     Spectrum,
+    packed_plan_for,
     plan_for,
 )
 from repro_torch.engine.registry import (  # noqa: F401
@@ -30,10 +35,12 @@ from repro_torch.engine.registry import (  # noqa: F401
     register_composition,
 )
 from repro_torch.engine.engine import (  # noqa: F401
+    PackedTopkResult,
     ProgramSpec,
     SolveResult,
     SolverEngine,
     TopkResult,
+    packed_topk_program,
     topk_program,
     update_program,
 )
@@ -47,4 +54,5 @@ from repro_torch.engine.verify import (  # noqa: F401
     VerifyFlags,
     verify_topk,
     verify_topk_host,
+    verify_topk_packed,
 )

@@ -7,9 +7,10 @@
                 a ones-vector (``identity.*_dot``).
     cuda        the hand-written kernels: Sturm bisection (full spectrum,
                 k-window and all stacked minor bands, one launch each), the
-                segmented Sturm bisection from warm per-lane brackets (the
-                session update) and the prod-diff numerator table.  On CPU
-                tensors the kernel wrappers run their plain versions.
+                segmented Sturm bisection (the k-windows of every segment of
+                packed rows, and warm per-lane brackets in the session
+                update) and the prod-diff numerator table.  On CPU tensors
+                the kernel wrappers run their plain versions.
 
 The Householder reduce, the minor-determinant recurrence and the sign
 recurrence are plain PyTorch on every backend, as ``repro`` leaves them to
@@ -23,7 +24,12 @@ Compositions registered here:
     eei_tridiag_windowed  Householder -> k-window Sturm -> minor-determinant
                           components -> recurrence signs + back-transform
 
-Each of them also carries the streaming rank-1 ``update`` chain
+``eigh`` and ``eei_tridiag_windowed`` also carry a ``packed_topk`` chain
+for stacks of segment-packed block-diagonal rows: one ``eigh`` of each row
+and a per-slot selection by in-segment mass, or Householder -> segmented
+Sturm (each segment's k-window) -> minor-determinant components ->
+recurrence signs + back-transform -> per-slot reshape.  Each of them also
+carries the streaming rank-1 ``update`` chain
 (``_UPDATE_CHAIN``): warm-project reduce -> bracketed Sturm ->
 minor-determinant components -> recurrence signs -> update select.
 ``eei_dense``, ``eei_krylov`` and ``eei_krylov_si`` wait for ROADMAP queue
@@ -37,7 +43,7 @@ import torch
 from repro_torch.core import identity, minors
 from repro_torch.core.directions import tridiagonal_signs
 from repro_torch.engine.plan import SolverPlan
-from repro_torch.engine.verify import verify_topk
+from repro_torch.engine.verify import verify_topk, verify_topk_packed
 from repro_torch.engine.registry import (
     Composition,
     StageLibrary,
@@ -61,6 +67,7 @@ def _common_stages() -> dict:
         "minor_det_components": identity.tridiag_windowed_magnitudes,
         "tridiag_signs": tridiagonal_signs,
         "verify_topk": verify_topk,
+        "verify_topk_packed": verify_topk_packed,
     }
 
 
@@ -78,6 +85,15 @@ def _make_plain(name: str, reduce: str, plan: SolverPlan) -> StageLibrary:
         return sturm.bisect_eigenvalues_bracketed(
             d, e, lo, hi, int(k), largest=bool(largest), n_iter=iters)
 
+    def tridiag_eigenvalues_segmented(d, e, seg_off, seg_len, k, largest):
+        from repro_torch.kernels.sturm.ops import segmented_lanes
+
+        lanes = segmented_lanes(d, e, seg_off, seg_len, k=int(k),
+                                largest=bool(largest))
+        out = sturm.bisect_lanes_segmented(
+            d, e, **lanes, n_iter=iters or sturm.default_iters(d.dtype))
+        return out.reshape(d.shape[0], seg_off.shape[1], int(k))
+
     def tridiag_minor_spectra(d, e):
         dm, em = minors.all_tridiagonal_minor_bands(d, e)
         return sturm.bisect_eigenvalues(dm, em, n_iter=iters)
@@ -90,6 +106,7 @@ def _make_plain(name: str, reduce: str, plan: SolverPlan) -> StageLibrary:
         "tridiag_eigenvalues": tridiag_eigenvalues,
         "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
         "tridiag_eigenvalues_bracketed": tridiag_eigenvalues_bracketed,
+        "tridiag_eigenvalues_segmented": tridiag_eigenvalues_segmented,
         "tridiag_minor_spectra": tridiag_minor_spectra,
         "magnitudes": magnitudes,
     })
@@ -120,6 +137,11 @@ def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
         return sturm_ops.sturm_eigenvalues_bracketed(
             d, e, lo, hi, k=int(k), largest=bool(largest), n_iter=iters)
 
+    def tridiag_eigenvalues_segmented(d, e, seg_off, seg_len, k, largest):
+        return sturm_ops.sturm_eigenvalues_segmented(
+            d, e, seg_off, seg_len, k=int(k), largest=bool(largest),
+            n_iter=iters)
+
     def tridiag_minor_spectra(d, e):
         dm, em = minors.all_tridiagonal_minor_bands(d, e)
         return sturm_ops.sturm_minor_spectra(dm, em, n_iter=iters)
@@ -129,6 +151,7 @@ def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
         "tridiag_eigenvalues": tridiag_eigenvalues,
         "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
         "tridiag_eigenvalues_bracketed": tridiag_eigenvalues_bracketed,
+        "tridiag_eigenvalues_segmented": tridiag_eigenvalues_segmented,
         "tridiag_minor_spectra": tridiag_minor_spectra,
         "magnitudes": pd_ops.eei_magnitudes_batched,
     })
@@ -158,6 +181,23 @@ _REC_TRI = StageSig(
     ("vecs",))
 _REC_TRI_SOLVE = StageSig(
     "recover", "tridiag_solve", ("d", "e", "q", "lam", "mags"), ("mags",))
+# The packed chains: a packed row is block-diagonal, so the full-chain
+# stages apply to the packed matrix itself.  The eigh chain selects each
+# slot's window among the row's eigenpairs by in-segment mass; the
+# tridiagonal chain swaps the windowed Sturm for its segmented twin (per-lane
+# bracket, segment and target) and runs the minor-determinant and sign
+# stages unchanged on the flattened (b, S*k) window (an eigenvalue of one
+# segment has ~0 minor-determinant mass outside it, and the sign recurrence
+# restarts at every zero junction).
+_SPEC_TRI_SEG = StageSig(
+    "spectrum", "tridiag_segmented", ("d", "e", "seg_off", "seg_len"),
+    ("lam_sel",))
+_REC_PACKED_SELECT = StageSig(
+    "recover", "packed_select", ("lam", "v", "seg_off", "seg_len"),
+    ("lam_seg", "vecs_seg"))
+_REC_PACKED_RESHAPE = StageSig(
+    "recover", "packed_reshape", ("lam_sel", "vecs", "seg_off", "seg_len"),
+    ("lam_seg", "vecs_seg"))
 # The streaming rank-1 update chain, shared by every method: the reduce
 # projects the updated matrix onto the session's retained Ritz basis, the
 # update direction and a few Lanczos extensions and tridiagonalizes the small
@@ -191,6 +231,10 @@ def register_default_compositions() -> None:
             StageSig("recover", "eigh_solve", ("lam", "v"), ("mags",)),
         ),
         eigenvalues=(_SPEC_DENSE,),
+        packed_topk=(
+            StageSig("spectrum", "eigh", ("a",), ("lam", "v")),
+            _REC_PACKED_SELECT,
+        ),
         update=_UPDATE_CHAIN,
     ))
     register_composition(Composition(
@@ -204,6 +248,9 @@ def register_default_compositions() -> None:
         name="eei_tridiag_windowed", method="eei_tridiag", windowed=True,
         topk=(_REDUCE, _SPEC_TRI_WIN, _COMP_DET, _REC_TRI),
         eigenvalues=(_REDUCE_NOQ, _SPEC_TRI_WIN),
+        packed_topk=(
+            _REDUCE, _SPEC_TRI_SEG, _COMP_DET, _REC_TRI,
+            _REC_PACKED_RESHAPE),
         update=_UPDATE_CHAIN,
     ))
 

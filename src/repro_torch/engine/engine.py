@@ -3,6 +3,8 @@
 ``SolverEngine(plan, device).solve(a)`` / ``.topk(a, k)`` /
 ``.eigenvalues(a)`` take one symmetric matrix ``(n, n)`` or a stack
 ``(b, n, n)`` and run the plan's composition on the plan's backend;
+``packed_topk_program(plan, k, largest)`` runs stacks of segment-packed
+block-diagonal rows, a window of ``k`` per segment;
 ``.open_session(a, k)`` / ``.update(session, u)`` maintain the top-k window
 of one matrix under rank-1 updates (``engine.session``).  The twin of
 ``repro.engine.engine``: a program resolves ``plan -> composition -> stage
@@ -55,17 +57,30 @@ class TopkResult(NamedTuple):
     vectors: torch.Tensor
 
 
+class PackedTopkResult(NamedTuple):
+    """Per-slot windows of a segment-packed stack: ``eigenvalues (b, S,
+    k)`` ascending per slot and ``vectors (b, S, k, n)`` over the full row
+    width (each segment's columns at its offset).  A slot with fewer than
+    ``k`` eigenvalues carries finite filler lanes outside the slice a
+    request of ``k' <= seg_len`` reads: at the front of a ``largest``
+    window, at the back of a smallest one."""
+
+    eigenvalues: torch.Tensor
+    vectors: torch.Tensor
+
+
 class ProgramSpec(NamedTuple):
     """Static description of one program: kind, window and verify.
 
     ``verify=True`` appends the backend's ``verify`` stage: a topk program
-    then returns ``(TopkResult, VerifyFlags)``.  ``update`` programs always
+    then returns ``(TopkResult, VerifyFlags)``, a packed_topk program
+    ``(PackedTopkResult, VerifyFlags)`` with per-slot flags.  ``update`` programs always
     verify, and carry the session's retained window ``m_keep`` and the
     number ``ext`` of augmentation directions (``u`` plus Lanczos
     extensions) of the warm-project reduce.
     """
 
-    kind: str  # solve | topk | eigenvalues | update
+    kind: str  # solve | topk | eigenvalues | packed_topk | update
     k: int = 0  # 0 -> no window (full spectrum)
     largest: bool = True
     verify: bool = False
@@ -292,6 +307,82 @@ def _b_update_select(lib, spec):
     return fn
 
 
+# -- packed (segment-stacked) stages ------------------------------------------
+
+
+def _in_segment(seg_off, seg_len, n):
+    """``(b, S, n)``: column ``p`` lies in slot ``s`` of row ``b``."""
+    col = torch.arange(n, dtype=torch.int32, device=seg_off.device)
+    return ((seg_off.unsqueeze(-1) <= col)
+            & (col < (seg_off + seg_len).unsqueeze(-1)))
+
+
+def _b_packed_select(lib, spec):
+    """Per-slot windows from the ``eigh`` of each packed row.
+
+    A packed row is block-diagonal, so each eigenvector lies in one segment
+    (or in guard columns): in-segment mass above 0.5 decides ownership.
+    Guard pairs and near-degenerate pairs mixed across two segments fail
+    the gate and leave finite filler lanes, which the per-slot verify flags.
+    """
+    k, largest = spec.k, spec.largest
+
+    def fn(st):
+        lam, v = st["lam"], st["v"]  # (b, N) ascending, columns = vectors
+        b, n = lam.shape
+        in_seg = _in_segment(st["seg_off"], st["seg_len"], n)
+        mass = torch.einsum("bsp,bpj->bsj", in_seg.to(lam.dtype), v * v)
+        owned = mass > 0.5
+        big = torch.finfo(lam.dtype).max / 8
+        fill = torch.full((), -big, dtype=lam.dtype, device=lam.device)
+        if largest:
+            vals = torch.where(owned, lam.unsqueeze(1), fill)
+            top, idx = torch.topk(vals, k, dim=-1)  # descending, fillers last
+            lam_seg, idx = top.flip(-1), idx.flip(-1)
+        else:
+            vals = torch.where(owned, -lam.unsqueeze(1), fill)
+            top, idx = torch.topk(vals, k, dim=-1)
+            lam_seg = -top  # ascending, fillers (+big) last
+        vt = v.transpose(-1, -2)  # rows = vectors
+        rows = torch.arange(b, device=lam.device)[:, None, None]
+        return {"lam_seg": lam_seg, "vecs_seg": vt[rows, idx, :]}
+
+    return fn
+
+
+def _b_tridiag_segmented(lib, spec):
+    """Per-segment k-windows of the packed band (the segmented Sturm
+    kernel), flattened to ``lam_sel (b, S*k)`` so that the components and
+    recover stages run on them unchanged."""
+    k, largest = spec.k, spec.largest
+
+    def fn(st):
+        lam_seg = lib.tridiag_eigenvalues_segmented(
+            st["d"], st["e"], st["seg_off"], st["seg_len"], k, largest)
+        b, s, _ = lam_seg.shape
+        return {"lam_sel": lam_seg.reshape(b, s * k)}
+
+    return fn
+
+
+def _b_packed_reshape(lib, spec):
+    k = spec.k
+
+    def fn(st):
+        lam_sel, vecs = st["lam_sel"], st["vecs"]  # (b, S*k), (b, S*k, N)
+        b, s = st["seg_off"].shape
+        return {"lam_seg": lam_sel.reshape(b, s, k),
+                "vecs_seg": vecs.reshape(b, s, k, vecs.shape[-1])}
+
+    return fn
+
+
+def _b_verify_topk_packed(lib, spec):
+    return lambda st: {"flags": lib.verify_topk_packed(
+        st["a"], st["seg_off"], st["seg_len"], st["lam_seg"],
+        st["vecs_seg"], spec.largest)}
+
+
 _STAGE_BUILDERS = {
     ("reduce", "householder"): _b_householder,
     ("spectrum", "eigh"): _b_eigh,
@@ -309,7 +400,11 @@ _STAGE_BUILDERS = {
     ("reduce", "warm_project"): _b_warm_project,
     ("spectrum", "tridiag_bracketed"): _b_tridiag_bracketed,
     ("recover", "update_select"): _b_update_select,
+    ("spectrum", "tridiag_segmented"): _b_tridiag_segmented,
+    ("recover", "packed_select"): _b_packed_select,
+    ("recover", "packed_reshape"): _b_packed_reshape,
     ("verify", "verify_topk"): _b_verify_topk,
+    ("verify", "verify_topk_packed"): _b_verify_topk_packed,
 }
 
 #: The verify stage the engine appends to a chain (not part of any
@@ -317,6 +412,13 @@ _STAGE_BUILDERS = {
 _VERIFY_SIG = registry.StageSig(
     role="verify", name="verify_topk",
     requires=("a", "lam_sel", "vecs"), provides=("flags",))
+
+#: Its packed twin: flags per slot ``(b, S)``, so one bad segment flags one
+#: request, not its whole row.
+_PACKED_VERIFY_SIG = registry.StageSig(
+    role="verify", name="verify_topk_packed",
+    requires=("a", "seg_off", "seg_len", "lam_seg", "vecs_seg"),
+    provides=("flags",))
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +434,7 @@ def _resolve_chain(plan: SolverPlan, spec: ProgramSpec):
     windowed chain (index-targeted bisection).  A composition without the
     kind's chain falls back to the method's full composition.
     """
-    if spec.kind in ("topk", "update"):
+    if spec.kind in ("topk", "packed_topk", "update"):
         windowed = plan.spectrum == "windowed"
     else:
         windowed = spec.kind == "eigenvalues" and spec.k > 0
@@ -359,10 +461,11 @@ class Program:
         lib = registry.get_backend(plan)
         _, chain = _resolve_chain(plan, spec)
         if spec.verify:
-            if spec.kind not in ("topk", "update"):
-                raise ValueError(
-                    "verify is only supported for topk and update programs")
-            chain = chain + (_VERIFY_SIG,)
+            if spec.kind not in ("topk", "packed_topk", "update"):
+                raise ValueError("verify is only supported for topk, "
+                                 "packed_topk and update programs")
+            chain = chain + (_PACKED_VERIFY_SIG if spec.kind == "packed_topk"
+                             else _VERIFY_SIG,)
         self.spec = spec
         self.stages = tuple(
             (sig, _STAGE_BUILDERS[(sig.role, sig.name)](lib, spec))
@@ -416,6 +519,24 @@ class UpdateProgram(Program):
                 state["a"], state["basis"], state["theta"])
 
 
+class PackedProgram(Program):
+    """The ``packed_topk`` program: ``prog(a, seg_off, seg_len)`` takes a
+    stack ``a (b, N, N)`` of block-diagonal rows and its segment layout
+    ``(b, S)`` (start columns and lengths, 0 for an empty slot) and returns
+    a :class:`PackedTopkResult`, with per-slot flags when it verifies."""
+
+    def initial_state(self, a, seg_off, seg_len) -> dict:
+        return {"a": a,
+                "seg_off": torch.as_tensor(seg_off, dtype=torch.int32,
+                                           device=a.device),
+                "seg_len": torch.as_tensor(seg_len, dtype=torch.int32,
+                                           device=a.device)}
+
+    def result(self, state: dict):
+        result = PackedTopkResult(state["lam_seg"], state["vecs_seg"])
+        return (result, state["flags"]) if self.spec.verify else result
+
+
 @functools.lru_cache(maxsize=None)
 def program(plan: SolverPlan, spec: ProgramSpec) -> Program:
     """The built program for one ``(plan, spec)``, cached."""
@@ -423,6 +544,8 @@ def program(plan: SolverPlan, spec: ProgramSpec) -> Program:
         if not spec.verify:
             raise ValueError("update programs always verify")
         return UpdateProgram(plan, spec)
+    if spec.kind == "packed_topk":
+        return PackedProgram(plan, spec)
     return Program(plan, spec)
 
 
@@ -432,6 +555,18 @@ def topk_program(plan: SolverPlan, k: int, largest: bool,
     ``verify=True`` it returns ``(TopkResult, VerifyFlags)``, its
     ``TopkResult`` bitwise equal to the plain program's."""
     return program(plan, ProgramSpec("topk", int(k), bool(largest),
+                                     bool(verify)))
+
+
+def packed_topk_program(plan: SolverPlan, k: int, largest: bool,
+                        verify: bool = False) -> PackedProgram:
+    """The per-slot top-k program of segment-packed stacks for one ``(plan,
+    k, largest)`` (:func:`~repro_torch.engine.plan.packed_plan_for` picks
+    the plan from the row width).  ``k`` is the slot window: every packed
+    request reads its own ``k' <= k`` lanes of it.  The program runs where
+    its operands lie; with ``verify=True`` it returns
+    ``(PackedTopkResult, flags (b, S))``."""
+    return program(plan, ProgramSpec("packed_topk", int(k), bool(largest),
                                      bool(verify)))
 
 

@@ -12,8 +12,9 @@ The twin of ``repro.engine.plan`` with the port's backend names:
     bisect_iters  Sturm bisection iterations (0 -> dtype default)
     max_batch     microbatch bound for long stacks (0 -> no bound)
 
-:func:`plan_for` picks a plan from the problem shape on the static
-crossover constants below; the port has no calibration table yet, and
+:func:`plan_for` picks a plan from the problem shape and
+:func:`packed_plan_for` one for a stack of segment-packed rows, on the
+static crossover constants below; the port has no calibration table yet, and
 ``repro``'s table was measured on a CPU, so it is not read.  A plan may name
 a method the port does not run yet: ``SolverEngine`` then says which
 ROADMAP item brings it.
@@ -46,6 +47,27 @@ KRYLOV_N_MIN = 1024
 
 #: ``k / n`` at or below which the Krylov band is narrow enough to win.
 KRYLOV_K_FRAC = 1.0 / 16.0
+
+#: Largest request ``n`` that is packed as a segment of a shared row.
+PACK_N_MAX = 32
+
+#: Packed row width at or below which the packed program takes the eigh
+#: chain; wider rows take the segmented-Sturm tridiagonal chain.
+PACKED_EIGH_N_MAX = 128
+
+
+# With no calibration table yet (ROADMAP queue 1, item 10), the resolved
+# crossovers are the static constants; the H100's own values are for that
+# item to measure.
+def resolved_pack_n_max() -> int:
+    """The largest request ``n`` worth packing (static: :data:`PACK_N_MAX`)."""
+    return PACK_N_MAX
+
+
+def resolved_packed_eigh_n_max() -> int:
+    """The packed row width at or below which eigh takes the packed chain
+    (static: :data:`PACKED_EIGH_N_MAX`)."""
+    return PACKED_EIGH_N_MAX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +138,22 @@ def plan_for(
             spectrum = "windowed"
     return SolverPlan(method=method, backend=backend, spectrum=spectrum,
                       precision=precision, bisect_iters=bisect_iters)
+
+
+def packed_plan_for(row_n: int, *, backend: Optional[BackendName] = None,
+                    precision: Optional[str] = None) -> SolverPlan:
+    """The plan a stack of segment-packed rows of width ``row_n`` runs.
+
+    A packed row is block-diagonal, so both packed chains apply to it as it
+    is; the choice is keyed on the row width: at or below
+    :func:`resolved_packed_eigh_n_max` the eigh chain (one ``eigh`` of the
+    row and a per-slot selection by mass), above it the windowed
+    tridiagonal chain with the segmented Sturm kernel.  The backend
+    defaults to ``cuda``.
+    """
+    if backend is None:
+        backend = "cuda"
+    if row_n <= resolved_packed_eigh_n_max():
+        return SolverPlan(method="eigh", backend=backend, precision=precision)
+    return SolverPlan(method="eei_tridiag", backend=backend,
+                      spectrum="windowed", precision=precision)

@@ -1,7 +1,7 @@
 """Stage-graph registry: the single dispatch point of the EEI pipeline.
 
-The twin of ``repro.engine.registry`` for the four program kinds the port
-runs (``solve``, ``topk``, ``eigenvalues``, ``update``):
+The twin of ``repro.engine.registry`` for the five program kinds the port
+runs (``solve``, ``topk``, ``eigenvalues``, ``packed_topk``, ``update``):
 
 * a **stage library** per backend (:class:`StageLibrary`), a named bundle
   of batched stage implementations;
@@ -17,7 +17,11 @@ State keys: ``a (b, n, n)``, ``idx (k,)``, ``d, e, q`` (reduce), ``lam
 ``flags`` (verify); and for ``update``: ``basis (b, m, n)``, ``theta (b,
 m)`` (the session's retained Ritz pairs), ``u (b, n)`` (the unit update
 direction), ``rho (b,)`` (its signed squared norm) and ``z2 (b, m)`` (its
-squared coefficients on the retained frame).
+squared coefficients on the retained frame); and for ``packed_topk``:
+``seg_off, seg_len (b, S)`` int32 (each row's segment start columns and
+lengths, 0 for an empty slot), ``lam_seg (b, S, k)`` (per-slot windows,
+ascending per slot) and ``vecs_seg (b, S, k, n)`` (per-slot vectors over
+the full row width).
 """
 
 from __future__ import annotations
@@ -32,11 +36,13 @@ from repro_torch.engine.plan import SolverPlan
 STAGE_ROLES = (
     "reduce", "spectrum", "minor_spectra", "components", "recover", "verify")
 
-PROGRAM_KINDS = ("solve", "topk", "eigenvalues", "update")
+PROGRAM_KINDS = ("solve", "topk", "eigenvalues", "packed_topk", "update")
 _INITIAL_KEYS = {
     "solve": frozenset({"a"}),
     "topk": frozenset({"a", "idx"}),
     "eigenvalues": frozenset({"a", "idx"}),
+    # a stack of block-diagonal rows, each carrying up to S requests
+    "packed_topk": frozenset({"a", "seg_off", "seg_len"}),
     # ``a`` is the already-updated stack.
     "update": frozenset({"a", "basis", "theta", "u", "rho", "idx"}),
 }
@@ -45,6 +51,7 @@ _FINAL_KEYS = {
     "topk": ({"lam_sel", "vecs"},),
     # windowed eigenvalue chains end at the window, full ones at the spectrum
     "eigenvalues": ({"lam"}, {"lam_sel"}),
+    "packed_topk": ({"lam_seg", "vecs_seg"},),
     # the refreshed session state rides out with the answer
     "update": ({"lam_sel", "vecs", "basis", "theta"},),
 }
@@ -70,9 +77,8 @@ class StageSig:
 class Composition:
     """A named, validated stage chain per program kind.
 
-    ``solve`` / ``eigenvalues`` / ``update`` may be ``None``: a windowed
-    composition has no full-table solve, and the engine then takes the
-    method's full one.
+    Every chain but ``topk`` may be ``None``: a windowed composition has no
+    full-table solve, and the engine then takes the method's full one.
     """
 
     name: str
@@ -81,6 +87,7 @@ class Composition:
     topk: Tuple[StageSig, ...]
     solve: Optional[Tuple[StageSig, ...]] = None
     eigenvalues: Optional[Tuple[StageSig, ...]] = None
+    packed_topk: Optional[Tuple[StageSig, ...]] = None
     update: Optional[Tuple[StageSig, ...]] = None
 
     def chain(self, kind: str) -> Optional[Tuple[StageSig, ...]]:

@@ -1,8 +1,8 @@
 """Post-solve result verification: the ``verify`` stage role.
 
-The twin of ``repro.engine.verify`` for bucketed top-k results (the packed
-form waits for the packed serving path, ROADMAP queue 1 item 12).  The
-kernels clamp the EEI denominators at ``eps * spectral scale``, which keeps
+The twin of ``repro.engine.verify``, for bucketed top-k results
+(:func:`verify_topk`) and per slot of segment-packed ones
+(:func:`verify_topk_packed`).  The kernels clamp the EEI denominators at ``eps * spectral scale``, which keeps
 results finite but not right on (near-)degenerate spectra; this stage
 scores every row of a top-k result and returns per-matrix flags:
 
@@ -77,6 +77,81 @@ def verify_topk(a: torch.Tensor, lam_sel: torch.Tensor, vecs: torch.Tensor,
     ok = finite & residual_ok & norm_ok & ordered
     return VerifyFlags(ok=ok, finite=finite, residual_ok=residual_ok,
                        norm_ok=norm_ok, ordered=ordered, residual=worst)
+
+
+def verify_topk_packed(a: torch.Tensor, seg_off: torch.Tensor,
+                       seg_len: torch.Tensor, lam_seg: torch.Tensor,
+                       vecs_seg: torch.Tensor, largest: bool = True,
+                       tol: float = DEFAULT_TOL,
+                       norm_tol: float = DEFAULT_NORM_TOL) -> VerifyFlags:
+    """Verify a segment-packed top-k result per slot: flags ``(b, S)``.
+
+    ``a (b, N, N)`` block-diagonal rows, ``seg_off, seg_len (b, S)``,
+    ``lam_seg (b, S, k)``, ``vecs_seg (b, S, k, N)``.  The checks of
+    :func:`verify_topk`, scoped to each segment so that they hold per
+    request:
+
+    * residuals of the vector masked to its segment, scaled by the
+      segment's own Frobenius norm;
+    * only the ``min(seg_len, k)`` valid lanes are checked (the clamped
+      lanes sit at the front of a ``largest`` window, at the back of a
+      smallest one);
+    * ``norm_ok`` also needs the in-segment mass to reach ``1 - norm_tol``;
+    * empty slots (``seg_len == 0``) pass.
+    """
+    k = lam_seg.shape[-1]
+    n = a.shape[-1]
+    seg_off = seg_off.to(device=a.device, dtype=torch.int32)
+    seg_len = seg_len.to(device=a.device, dtype=torch.int32)
+    col = torch.arange(n, dtype=torch.int32, device=a.device)
+    in_seg = ((seg_off.unsqueeze(-1) <= col)
+              & (col < (seg_off + seg_len).unsqueeze(-1)))  # (b, S, N)
+    mask = in_seg.to(a.dtype)
+    empty = seg_len == 0
+
+    clen = torch.clamp(seg_len, max=k)
+    t = torch.arange(k, dtype=torch.int32, device=a.device)
+    if largest:
+        valid = t >= (k - clen).unsqueeze(-1)  # (b, S, k)
+    else:
+        valid = t < clen.unsqueeze(-1)
+
+    finite_lane = (torch.isfinite(lam_seg)
+                   & torch.isfinite(vecs_seg).all(dim=-1))
+    finite = (finite_lane | ~valid).all(dim=-1)
+
+    seg_fro2 = torch.einsum("bsp,bpq,bsq->bs", mask, a * a, mask)
+    scale = torch.clamp(torch.sqrt(seg_fro2), min=1e-30)  # (b, S)
+
+    # The residual of the slice a caller is served: the vector masked to
+    # its segment (what the mask drops is bounded by the mass check).
+    vm = vecs_seg * mask.unsqueeze(-2)
+    av = torch.einsum("bij,bskj->bski", a, vm)
+    res = av - lam_seg.unsqueeze(-1) * vm
+    res_norm = torch.sqrt(torch.sum(res * res, dim=-1))  # (b, S, k)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    worst = torch.where(valid, res_norm, zero).amax(dim=-1) / scale
+    residual_ok = worst <= tol
+
+    norms2 = torch.sum(vecs_seg * vecs_seg, dim=-1)  # (b, S, k)
+    mass = torch.einsum("bsp,bskp->bsk", mask, vecs_seg * vecs_seg)
+    lane_norm_ok = (((torch.sqrt(norms2) - 1.0).abs() <= norm_tol)
+                    & (mass >= 1.0 - norm_tol))
+    norm_ok = (lane_norm_ok | ~valid).all(dim=-1)
+
+    if k < 2:
+        ordered = torch.ones_like(finite)
+    else:
+        dif = lam_seg[..., 1:] - lam_seg[..., :-1]
+        pair_valid = valid[..., 1:] & valid[..., :-1]
+        ordered = ((dif >= -tol * scale.unsqueeze(-1))
+                   | ~pair_valid).all(dim=-1)
+
+    ok = (finite & residual_ok & norm_ok & ordered) | empty
+    return VerifyFlags(ok=ok, finite=finite | empty,
+                       residual_ok=residual_ok | empty,
+                       norm_ok=norm_ok | empty, ordered=ordered | empty,
+                       residual=torch.where(empty, zero, worst))
 
 
 def verify_topk_host(a, lam_sel, vecs, tol: float = DEFAULT_TOL,

@@ -37,8 +37,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sturm_bisect_f32": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     "sturm_bisect_f64": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
-    "sturm_segmented_f32": (_P,) * 9 + (_I, _I, _I, _I, _P),
-    "sturm_segmented_f64": (_P,) * 9 + (_I, _I, _I, _I, _P),
+    "sturm_segmented_f32": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "sturm_segmented_f64": (_P,) * 9 + (_I,) * 7 + (_P,),
     "logabs_sum_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "logabs_sum_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "logabs_sum_masked_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

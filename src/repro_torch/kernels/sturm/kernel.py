@@ -9,7 +9,9 @@ that row's ``bounds = [lo, hi, pivmin]``.
 :func:`sturm_segmented` launches ``csrc/sturm_segmented.cu`` (the port of
 ``repro.kernels.sturm.kernel.sturm_segmented_padded``), or runs
 :func:`sturm_segmented_plain` on the CPU: every lane carries its own
-bracket, ``pivmin``, segment ``[start, end)`` and target index.
+bracket, ``pivmin``, segment ``[start, end)`` and target index.  Its
+launch geometry (:func:`_segmented_geometry`) gives a block the lanes of
+one segment; a band of any length runs.
 
 Each wrapper's ``.launches`` counts its kernel launches.
 """
@@ -128,8 +130,9 @@ sturm_bisect.launches = 0
 
 
 def sturm_segmented_plain(d, e, lo, hi, pivmin, start, end, targets, *,
-                          n_iter: int) -> torch.Tensor:
-    """Plain PyTorch version of the segmented kernel, ``(rows, m)``."""
+                          n_iter: int, segment_lanes: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the segmented kernel, ``(rows, m)``
+    (``segment_lanes`` shapes only the kernel's launch)."""
     return bisect_lanes_segmented(d, e, lo, hi, pivmin, start, end, targets,
                                   n_iter)
 
@@ -158,16 +161,77 @@ def _check_segmented(d, e, lanes, n_iter):
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
 
 
+#: Blocks of ``csrc/sturm_segmented.cu`` an SM is meant to hold at once,
+#: which sets a block's share of shared memory for its window of the band,
+#: and the warps (at one thread a lane) at or above which a launch counts
+#: as large: sixteen an SM.
+_SEG_BLOCKS_PER_SM = 16
+_SEG_WARPS_PER_SM = 16
+#: Shared memory of one H100 SM, what the runtime reserves for each block
+#: on it, and a margin for the kernel's static shared variables.
+_SM_SHARED_BYTES = 233_472
+_BLOCK_RESERVED_BYTES = 1024
+_STATIC_SHARED_BYTES = 64
+
+
+def _segmented_shared_bytes(window: int, cap: int, threads: int,
+                            elsize: int) -> int:
+    """Shared memory of one block of ``csrc/sturm_segmented.cu``: the
+    window of the band (``d``, ``e^2``), the lanes' ``pivmin``, two bracket
+    lists of ``cap`` entries, the lanes' four ints and the lists' two, and
+    one round's counts."""
+    return (2 * window * elsize + 5 * cap * elsize
+            + (8 * cap + max(cap, threads)) * 4)
+
+
+def _segmented_geometry(rows: int, n: int, m: int, segment_lanes: int,
+                        elsize: int, sms: int):
+    """``(cap, threads, window)`` of a segmented launch: lanes a block,
+    threads a block, and the columns of the band a block stages.
+
+    A block takes the lanes of one segment (``segment_lanes``, the window
+    of a packed request; the whole row where that is not given), so it
+    stages only that segment's columns.  A launch with at least sixteen
+    warps an SM at one thread a lane runs that way (throughput-bound);
+    a smaller one is bound by the latency of its recurrences and gets
+    threads for the ``2^3 - 1`` evaluations of three tree levels a round.
+    The window is the block's share of the SM's shared memory when the SM
+    holds as many blocks as the launch gives it (at most sixteen), at most
+    the band; a block whose walks span more columns reads the band from
+    device memory.  Every geometry gives the same bits.
+    """
+    cap = segment_lanes if 0 < segment_lanes <= m else m
+
+    def threads_for(cap, per_lane):
+        return min(_MAX_THREADS, max(32, 32 * -(-cap * per_lane // 32)))
+
+    while _segmented_shared_bytes(0, cap, threads_for(cap, 1),
+                                  elsize) > _MAX_SHARED_BYTES:
+        cap = -(-cap // 2)
+    blocks = rows * -(-m // cap)
+    large = blocks * -(-cap // 32) >= _SEG_WARPS_PER_SM * sms
+    threads = threads_for(cap, 1 if large else (1 << _MAX_DEPTH) - 1)
+    per_sm = min(_SEG_BLOCKS_PER_SM, max(1, -(-blocks // sms)))
+    budget = min(_MAX_SHARED_BYTES,
+                 _SM_SHARED_BYTES // per_sm - _BLOCK_RESERVED_BYTES)
+    budget -= _STATIC_SHARED_BYTES + _segmented_shared_bytes(
+        0, cap, threads, elsize)
+    window = min(n, max(0, budget // (2 * elsize)))
+    return cap, threads, window
+
+
 def sturm_segmented(d: torch.Tensor, e: torch.Tensor, lo: torch.Tensor,
                     hi: torch.Tensor, pivmin: torch.Tensor,
                     start: torch.Tensor, end: torch.Tensor,
-                    targets: torch.Tensor, *, n_iter: int) -> torch.Tensor:
+                    targets: torch.Tensor, *, n_iter: int,
+                    segment_lanes: int = 0) -> torch.Tensor:
     """Lane ``(row, m)``: eigenvalue ``targets[row, m]`` of the block
     ``[start, end)`` of band ``row``, bisected from its own ``[lo, hi]``.
 
     ``d (rows, n)``, ``e (rows, n-1)``; ``lo, hi, pivmin`` float and
-    ``start, end, targets`` int32, each ``(rows, m)``.  Returns
-    ``(rows, m)``.
+    ``start, end, targets`` int32, each ``(rows, m)``.  ``segment_lanes``
+    (the lanes of one segment, when the lanes come in runs of one segment
+    each) shapes the launch only.  Returns ``(rows, m)``.
     """
     lanes = {"lo": lo, "hi": hi, "pivmin": pivmin, "start": start,
              "end": end, "targets": targets}
@@ -182,13 +246,14 @@ def sturm_segmented(d: torch.Tensor, e: torch.Tensor, lo: torch.Tensor,
         raise ValueError("sturm_segmented needs contiguous operands")
     rows, n = d.shape
     m = lo.shape[1]
-    if 2 * n * d.element_size() > _MAX_SHARED_BYTES:
-        raise ValueError(f"band n={n} does not fit one block's shared memory")
     out = torch.empty((rows, m), dtype=d.dtype, device=d.device)
     if rows == 0 or m == 0:
         return out
+    sms = torch.cuda.get_device_properties(d.device).multi_processor_count
+    geometry = _segmented_geometry(rows, n, m, segment_lanes,
+                                   d.element_size(), sms)
     build.launch(_SEG_ENTRY[d.dtype], d.device, d, e, lo, hi, pivmin, start,
-                 end, targets, out, rows, n, m, n_iter)
+                 end, targets, out, rows, n, m, n_iter, *geometry)
     sturm_segmented.launches += 1
     return out
 

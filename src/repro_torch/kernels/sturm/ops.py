@@ -4,9 +4,9 @@ stacks, packed segments, warm brackets).
 ``sturm_eigenvalues`` runs one launch over a ``(B, n)`` stack of bands;
 ``sturm_minor_spectra`` flattens all ``b * n`` minor bands of a ``(b, n)``
 batch onto the kernel's row axis, so the whole stack is one launch.
-``sturm_eigenvalues_segmented`` (packed block-diagonal bands) and
-``sturm_eigenvalues_bracketed`` (warm per-lane brackets, the session
-update) run the segmented kernel.  The bounds are computed here exactly as
+``sturm_eigenvalues_segmented`` (packed block-diagonal bands, the
+spectrum stage of the packed program) and ``sturm_eigenvalues_bracketed``
+(warm per-lane brackets, the session update) run the segmented kernel.  The bounds are computed here exactly as
 ``repro.kernels.sturm.ops`` computes them: Gershgorin widened by
 ``eps * span`` and ``pivmin = max(eps^2 * scale^2, tiny)``.
 """
@@ -74,7 +74,8 @@ def sturm_eigenvalues_segmented(d: torch.Tensor, e: torch.Tensor,
     """
     lanes = segmented_lanes(d, e, seg_off, seg_len, k=k, largest=largest)
     out = sturm_segmented(d.contiguous(), e.contiguous(), **lanes,
-                          n_iter=n_iter or default_iters(d.dtype))
+                          n_iter=n_iter or default_iters(d.dtype),
+                          segment_lanes=k)
     return out.reshape(d.shape[0], seg_off.shape[1], k)
 
 

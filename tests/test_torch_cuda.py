@@ -353,3 +353,186 @@ def test_prod_diff_kernel_at_extreme_scales(cuda_device, dtype):
     got = pd_kernel.logabs_sum(lam, mu[:, :, 6:].contiguous(), zero)
     ref = pd_kernel.logabs_sum_plain(lam, mu[:, :, 6:].contiguous(), zero)
     _close(got, ref, tol)
+
+
+def _packed_case(rng, lengths, dtype, scale, junction):
+    """One packed row: segments of ``lengths`` (0: an empty slot), random
+    or made of repeated blocks, junction off-diagonals 0 or ``junction``
+    times a normal draw; the layout ``(off, length)``."""
+    d, e = [], []
+    for i, length in enumerate(lengths):
+        if length == 0:
+            continue
+        if i % 2:  # repeated eigenvalues: one 2-block copied, e = 0 between
+            blk = rng.standard_normal(2)
+            sd = np.resize(blk, length)
+            se = np.resize([rng.standard_normal(), 0.0], length - 1)
+        else:
+            sd = rng.standard_normal(length)
+            se = rng.standard_normal(length - 1)
+        if d:
+            e.append(junction * rng.standard_normal())
+        d.extend(sd)
+        e.extend(se)
+    off = np.cumsum([0] + list(lengths))[:-1]
+    return (np.array(d) * scale, np.array(e) * scale, off,
+            np.array(lengths))
+
+
+def _segmented_cases(dtype):
+    """The numpy model's cases (tests/test_torch_kernel_design.py), as
+    card inputs: packed rows with empty slots, length-1 segments, repeated
+    eigenvalues, zero and nonzero junctions, scales from 1e-19 to 1e150
+    (1e30 in float32, past ~1e19 of which e^2 overflows), and the inputs
+    whose lanes walk from column 0 (e^2 overflowing, an infinite entry,
+    pivmin 0, an infinite bracket); each as ``(d, e, lanes, k)``.  Every
+    output is finite, so that ``torch.equal`` compares all of it."""
+    rng = np.random.default_rng(31)
+    top = 150 if dtype == torch.float64 else 30
+    cases = []
+    for scale in (1e-19, 1.0, 1e10, 10.0 ** top):
+        for junction in (0.0, 1e-3, 1.0):
+            for lengths in ((5, 0, 1, 9, 3), (1, 1, 1, 1), (12, 7, 0, 0, 8)):
+                d, e, off, length = _packed_case(rng, lengths, dtype, scale,
+                                                 junction)
+                for k, largest in ((3, True), (2, False)):
+                    cases.append((d, e, off, length, k, largest, None))
+    big = 1e200 if dtype == torch.float64 else 1e25
+    for what in ("overflow", "inf", "pivmin0", "bracket"):
+        d, e, off, length = _packed_case(rng, (6, 1, 7, 5), dtype, 1.0, 0.0)
+        if what == "overflow":
+            e[1] = e[2] = big
+        cases.append((d, e, off, length, 3, True, what))
+    out = []
+    for d, e, off, length, k, largest, what in cases:
+        dd = torch.as_tensor(d[None], dtype=dtype)
+        ee = torch.as_tensor(e[None], dtype=dtype)
+        lanes = st_ops.segmented_lanes(
+            dd, ee, torch.as_tensor(off[None]), torch.as_tensor(length[None]),
+            k=k, largest=largest)
+        if what == "inf":  # after the brackets, which stay finite
+            dd[0, 2] = float("inf")
+        if what == "pivmin0":
+            lanes["pivmin"].zero_()
+        if what == "bracket":
+            lanes["hi"][0, 6:] = float("inf")
+        out.append((dd, ee, lanes, k))
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_kernel_is_bitwise_on_the_model_cases(cuda_device, dtype):
+    """Kernel 3 (restart at the junction, a tree per block) against its
+    plain version, bitwise, on the numpy model's cases and on warm per-lane
+    brackets (the session's case, some stale), with and without the launch
+    geometry's segment hint."""
+    iters = 64 if dtype == torch.float64 else 32
+    for d, e, lanes, k in _segmented_cases(dtype):
+        ref = st_kernel.sturm_segmented_plain(d, e, **lanes, n_iter=iters)
+        dev = {key: v.to(cuda_device) for key, v in lanes.items()}
+        for hint in (0, k):
+            got = st_kernel.sturm_segmented(
+                d.to(cuda_device), e.to(cuda_device), **dev, n_iter=iters,
+                segment_lanes=hint)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), ref), (tuple(d.shape), k, hint)
+    d, e = _bands(13, 2, 16, dtype, "cpu")
+    lam = st_ops.sturm_eigenvalues(d, e, window=(12, True))
+    lo, hi = interlace.rank1_update_brackets(lam, 0.0, drift_bound=1e-3)
+    lo[1, :3] += 4.0
+    hi[1, :3] += 4.0
+    lanes = st_ops.bracketed_lanes(d, e, lo, hi, k=12, largest=True)
+    ref = st_kernel.sturm_segmented_plain(d, e, **lanes, n_iter=iters)
+    got = st_kernel.sturm_segmented(
+        d.to(cuda_device), e.to(cuda_device),
+        **{key: v.to(cuda_device) for key, v in lanes.items()},
+        n_iter=iters, segment_lanes=12)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_kernel_on_a_band_longer_than_shared_memory(cuda_device,
+                                                             dtype):
+    """A band too long for one block's shared memory (its walks read the
+    band from device memory): bitwise its plain version, with one lane
+    restarting at a zero junction.  Few iterations: the plain version takes
+    a Python step a column."""
+    n = 15_000 if dtype == torch.float64 else 30_000
+    d, e = _bands(19, 1, n, dtype, cuda_device)
+    e[0, n // 2 - 1] = 0.0
+    m = 3
+    lo, hi = gershgorin_bounds(d, e)
+    lanes = {"lo": lo[:, None].expand(1, m).contiguous(),
+             "hi": hi[:, None].expand(1, m).contiguous(),
+             "pivmin": _pivmin(d, e)[:, None].expand(1, m).contiguous(),
+             "start": torch.tensor([[0, n // 2, n - 5]], dtype=torch.int32,
+                                   device=cuda_device),
+             "end": torch.tensor([[n, n, n]], dtype=torch.int32,
+                                 device=cuda_device),
+             "targets": torch.tensor([[n - 1, 7, 2]], dtype=torch.int32,
+                                     device=cuda_device)}
+    iters = 6
+    got = st_kernel.sturm_segmented(d, e, **lanes, n_iter=iters)
+    ref = st_kernel.sturm_segmented_plain(d, e, **lanes, n_iter=iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def _uniform_layout(rng, batch, row_n, seg_n):
+    """A uniform packed stack (``repro``'s autotune._packed_uniform_layout):
+    ``row_n // seg_n`` seeded symmetric segments a row."""
+    slots = row_n // seg_n
+    a = rng.standard_normal((batch * slots, seg_n, seg_n))
+    a = (a + np.swapaxes(a, 1, 2)) / 2
+    rows = np.zeros((batch, row_n, row_n))
+    for b in range(batch):
+        for s in range(slots):
+            o = s * seg_n
+            rows[b, o:o + seg_n, o:o + seg_n] = a[b * slots + s]
+    off = np.tile(np.arange(slots, dtype=np.int32) * seg_n, (batch, 1))
+    length = np.full((batch, slots), seg_n, np.int32)
+    return a, rows, off, length
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("row_n", [64, 256])
+def test_packed_program_on_card(cuda_device, row_n, dtype):
+    """``packed_topk_program`` on the card: both chains agree with eigvalsh
+    of each request and pass their per-slot verify flags, but for the
+    in-segment mass of some float32 slots of the tridiagonal chain, which
+    repro misses on the same slots (tests/test_torch_packed.py); the
+    windowed chain launches kernel 3 once, bitwise its plain version."""
+    from repro_torch import packed_plan_for, packed_topk_program
+
+    rng = np.random.default_rng(row_n)
+    a, rows, off, length = _uniform_layout(rng, 4, row_n, 32)
+    prog = packed_topk_program(packed_plan_for(row_n), 8, True, verify=True)
+    seg_calls = []
+    seg = st_ops.sturm_segmented
+
+    def capturing(d, e, **kw):
+        out = seg(d, e, **kw)
+        seg_calls.append((d, e, kw, out))
+        return out
+
+    st_ops.sturm_segmented = capturing
+    try:
+        before = st_kernel.sturm_segmented.launches
+        res, flags = prog(torch.as_tensor(rows, dtype=dtype,
+                                          device=cuda_device),
+                          torch.as_tensor(off), torch.as_tensor(length))
+        torch.cuda.synchronize()
+        launched = st_kernel.sturm_segmented.launches - before
+    finally:
+        st_ops.sturm_segmented = seg
+    assert bool((flags.finite & flags.residual_ok & flags.ordered).all())
+    if not (dtype == torch.float32 and row_n > 128):
+        assert bool(flags.ok.all())
+    ref = np.linalg.eigvalsh(a)[:, -8:]
+    got = res.eigenvalues.double().cpu().numpy().reshape(-1, 8)
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=5e-4 * scale)
+    assert launched == (0 if row_n <= 128 else 1)
+    for d, e, kw, out in seg_calls:
+        assert torch.equal(out, st_kernel.sturm_segmented_plain(d, e, **kw))

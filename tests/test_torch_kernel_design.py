@@ -32,7 +32,8 @@ from repro_torch.core.identity import (  # noqa: E402
     logabs_numerator_clamped, spectral_floor)
 from repro_torch.kernels.sturm.kernel import _geometry  # noqa: E402
 from repro_torch.linalg.sturm import (  # noqa: E402
-    _pivmin, bisect_lanes, default_iters, gershgorin_bounds)
+    _pivmin, bisect_lanes, bisect_lanes_segmented, default_iters,
+    gershgorin_bounds)
 
 DTYPES = (np.float64, np.float32)
 _UINT = {np.float64: np.uint64, np.float32: np.uint32}
@@ -413,3 +414,394 @@ def test_split_product_with_a_random_mask_matches_the_masked_sum(dtype):
                                    mask=torch.as_tensor(mask)).numpy()
     rtol, atol = TOL["prod_diff"][name]
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol)
+
+
+# -- a numpy model of csrc/sturm_segmented.cu ---------------------------------
+
+
+def _walks(d, e2, lo, hi, piv, start, end):
+    """Each lane's segment clamped to the band and the column its walk
+    starts from: the last ``j <= start`` with ``j == 0`` or ``e2[j-1] ==
+    0``, or 0 where a NaN could reach that junction (non-finite ``d`` or
+    ``e^2`` before it, ``e^2 / pivmin`` overflowing, ``pivmin <= 0`` or a
+    non-finite bracket)."""
+    n = d.shape[0]
+    s = np.clip(start, 0, n)
+    en = np.maximum(np.minimum(end, n), s)
+    frm = en.copy()
+    for l in range(len(s)):
+        if en[l] > s[l]:
+            j = s[l]
+            while j > 0 and e2[j - 1] != 0:
+                j -= 1
+            frm[l] = j
+    walking = frm < en
+    prefix = int(frm[walking].max()) if walking.any() else 0
+    e2p = np.concatenate([[0], e2])[:prefix].astype(d.dtype)
+    bad = not (np.all(np.isfinite(d[:prefix])) and np.all(np.isfinite(e2p)))
+    e2max = e2p[np.isfinite(e2p)].max() if prefix else d.dtype.type(0)
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        for l in range(len(s)):
+            if 0 < frm[l] < en[l] and (
+                    bad or not piv[l] > 0 or not np.isfinite(e2max / piv[l])
+                    or not np.isfinite(lo[l]) or not np.isfinite(hi[l])):
+                frm[l] = 0
+    return s, en, frm
+
+
+def _segment_counts(d, e2, x, piv, frm, start, end):
+    """Counts of the walks ``[frm, end)`` at the shifts ``x``, only steps
+    ``>= start`` counted, all evaluations in lock step; and the steps."""
+    dt = d.dtype.type
+    count = np.zeros(len(x), np.int64)
+    q = np.ones(len(x), dt)
+    if len(x) == 0 or not np.any(frm < end):
+        return count, 0
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        for k in range(int(frm[frm < end].min()), int(end.max())):
+            active = (frm <= k) & (k < end)
+            if not active.any():
+                continue
+            first = k == frm
+            dk = d[k] - x
+            step = dk - (e2[k - 1] if k > 0 else dt(0)) / q
+            qn = np.where(first, dk, step)
+            qn = np.where(np.abs(qn) < piv, -piv, qn)
+            count += active & (k >= start) & _negative(qn)
+            q = np.where(active, qn, q)
+    return count, int(np.maximum(end - frm, 0).sum())
+
+
+def segmented_tree_row(d, e, lo, hi, piv, start, end, targets, n_iter,
+                       threads, cap):
+    """``csrc/sturm_segmented.cu`` on one band: blocks of ``cap`` lanes and
+    ``threads`` threads.  Returns the outputs, the recurrence steps its
+    evaluations walked and the rounds of its longest block."""
+    dt = d.dtype.type
+    half = dt(0.5)
+    e2 = e * e
+    m = len(lo)
+    out = np.full(m, np.nan, dt)
+    steps = rounds = 0
+    for lane0 in range(0, m, cap):
+        sl = slice(lane0, min(m, lane0 + cap))
+        blo, bhi, bpiv, tg = lo[sl], hi[sl], piv[sl], targets[sl]
+        s, en, frm = _walks(d, e2, blo, bhi, bpiv, start[sl], end[sl])
+        same = lambda a, b: _bits(a) == _bits(b)  # noqa: E731
+        brackets, first = [], 0
+        for l in range(1, len(blo) + 1):
+            if l == len(blo) or not (
+                    same(blo[l], blo[l - 1]) and same(bhi[l], bhi[l - 1])
+                    and same(bpiv[l], bpiv[l - 1]) and s[l] == s[l - 1]
+                    and en[l] == en[l - 1] and tg[l] >= tg[l - 1]):
+                brackets.append((blo[first], bhi[first], first, l - 1))
+                first = l
+        it = block_rounds = 0
+        while brackets and it < n_iter:
+            depth = 1
+            while (depth < 3 and depth < n_iter - it
+                   and len(brackets) * ((2 << depth) - 1) <= threads):
+                depth += 1
+            nodes = (1 << depth) - 1
+            mids, owner = [], []
+            for lo_, hi_, f, _ in brackets:
+                for v in range(nodes):
+                    path, a, b = v + 1, lo_, hi_
+                    mid = half * (a + b)
+                    for bit in range(path.bit_length() - 2, -1, -1):
+                        a, b = (mid, b) if (path >> bit) & 1 else (a, mid)
+                        mid = half * (a + b)
+                    mids.append(mid)
+                    owner.append(f)
+            owner = np.array(owner)
+            cnt, walked = _segment_counts(d, e2, np.array(mids, dt),
+                                          bpiv[owner], frm[owner], s[owner],
+                                          en[owner])
+            steps += walked
+            # One walker a path (a bracket and `depth` turns), as the kernel
+            # walks: a fixed point is written by the first path under each
+            # of its children, a live leaf goes on.
+            leaves = []
+            for w in range(len(brackets) << depth):
+                i, path = w >> depth, w & ((1 << depth) - 1)
+                a, b, lf, rl = brackets[i]
+                v, live = 0, True
+                for level in range(depth):
+                    below = depth - 1 - level
+                    right = (path >> below) & 1
+                    mid = half * (a + b)
+                    c = int(cnt[i * nodes + v])
+                    split = lf + int(np.searchsorted(tg[lf:rl + 1], c))
+                    if _fixed(a, b, mid):
+                        if path & ((1 << below) - 1) == 0:
+                            if not right:
+                                out[lane0 + lf:lane0 + split] = half * (a + mid)
+                            else:
+                                out[lane0 + split:lane0 + rl + 1] = \
+                                    half * (mid + b)
+                        live = False
+                        break
+                    if right:
+                        a, lf, v = mid, split, 2 * v + 2
+                    else:
+                        b, rl, v = mid, split - 1, 2 * v + 1
+                    if lf > rl:
+                        live = False
+                        break
+                if live:
+                    leaves.append((a, b, lf, rl))
+            brackets = leaves
+            it += depth
+            block_rounds += 1
+        for a, b, f, last in brackets:
+            out[lane0 + f:lane0 + last + 1] = half * (a + b)
+        rounds = max(rounds, block_rounds)
+    return out, steps, rounds
+
+
+def segmented_tree(d, e, lanes, n_iter, threads, cap):
+    """The model over rows: ``(rows, m)``, steps walked, longest rounds."""
+    with np.errstate(all="ignore"):
+        rows = [segmented_tree_row(d[r], e[r], *(lanes[name][r] for name in (
+            "lo", "hi", "pivmin", "start", "end", "targets")), n_iter,
+            threads, cap) for r in range(d.shape[0])]
+    return (np.stack([r[0] for r in rows]), sum(r[1] for r in rows),
+            max(r[2] for r in rows))
+
+
+def _plain_segmented(d, e, lanes, n_iter):
+    return bisect_lanes_segmented(
+        torch.as_tensor(d), torch.as_tensor(e),
+        **{k: torch.as_tensor(v) for k, v in lanes.items()},
+        n_iter=n_iter).numpy()
+
+
+def _packed_band(rng, lengths, kinds, dtype, scale, junction):
+    """One packed row of segments of ``lengths`` (0: an empty slot, no
+    columns), each of its own structure; junction off-diagonals 0, or
+    ``junction`` times a normal draw where that is nonzero."""
+    d, e = [], []
+    for length, kind in zip(lengths, kinds):
+        if length == 0:
+            continue
+        bd, be = _band(kind, length, 1, np.float64, 1.0,
+                       int(rng.integers(1 << 16)))
+        if d:
+            e.append(junction * rng.standard_normal())
+        d.extend(bd[0])
+        e.extend(be[0])
+    off = np.cumsum([0] + list(lengths))[:-1]
+    return ((np.array(d) * scale).astype(dtype),
+            (np.array(e) * scale).astype(dtype), off.astype(np.int32),
+            np.array(lengths, np.int32))
+
+
+def _np_lanes(d, e, off, length, k, largest):
+    from repro_torch.kernels.sturm.ops import segmented_lanes
+
+    lanes = segmented_lanes(torch.as_tensor(d[None]), torch.as_tensor(e[None]),
+                            torch.as_tensor(off[None]),
+                            torch.as_tensor(length[None]), k=k,
+                            largest=largest)
+    return {name: v.numpy() for name, v in lanes.items()}
+
+
+def _iters(dtype):
+    return 64 if dtype == np.float64 else 32
+
+
+#: Scale exponents of the drawn packed bands: float64 to 1e150; float32 to
+#: 1e30, past ~1e19 of which e^2 overflows (the lanes then walk from 0).
+_SEG_SCALE_EXP = {np.float64: (-19, 150), np.float32: (-19, 30)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@settings(max_examples=30, deadline=None)
+@given(lengths=st.lists(st.integers(0, 9), min_size=1, max_size=4),
+       kinds=st.lists(st.sampled_from(_KINDS), min_size=4, max_size=4),
+       scale_exp=st.integers(-19, 150), junction=st.sampled_from([0.0, 1e-3, 1.0]),
+       k=st.integers(1, 4), largest=st.booleans(),
+       threads=st.sampled_from([32, 64, 640]), cap=st.sampled_from([1, 3, 4, 64]),
+       seed=st.integers(0, 2 ** 16))
+def test_segmented_tree_is_bitwise_the_plain_version(dtype, lengths, kinds,
+                                                     scale_exp, junction, k,
+                                                     largest, threads, cap,
+                                                     seed):
+    """The model of kernel 3 (restart at the junction, a tree per block,
+    fixed-point exit) against ``bisect_lanes_segmented``, bitwise, on packed
+    rows with empty slots, length-1 segments, repeated eigenvalues, zero and
+    nonzero junctions, and scales from 1e-19 to 1e150 (1e30 in float32)."""
+    if sum(lengths) == 0:
+        lengths = lengths + [1]
+    lo_e, hi_e = _SEG_SCALE_EXP[dtype]
+    scale = 10.0 ** min(max(scale_exp, lo_e), hi_e)
+    rng = np.random.default_rng(seed)
+    d, e, off, length = _packed_band(rng, lengths, kinds, dtype, scale,
+                                     junction)
+    lanes = _np_lanes(d, e, off, length, k, largest)
+    got, _, _ = segmented_tree(d[None], e[None], lanes, _iters(dtype),
+                               threads, cap)
+    assert _same_bits(got, _plain_segmented(d[None], e[None], lanes,
+                                            _iters(dtype)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+def test_segmented_tree_restarts_only_where_it_is_bitwise(dtype):
+    """Lanes whose prefix could form a NaN walk from column 0 and stay
+    bitwise: e^2 overflowing before the junction, a non-finite entry there,
+    pivmin 0 and an infinite bracket; a nonzero junction walks back to the
+    previous zero."""
+    rng = np.random.default_rng(5)
+    big = 1e200 if dtype == np.float64 else 1e25
+    n_iter = _iters(dtype)
+    for case in ("overflow", "inf", "pivmin0", "bracket", "leak"):
+        d, e, off, length = _packed_band(rng, [6, 1, 7, 5], ["random"] * 4,
+                                         dtype, 1.0, 0.0)
+        if case == "overflow":
+            e[1] = e[2] = dtype(big)
+        if case == "inf":
+            d[2] = np.inf
+        if case == "leak":
+            e[6] = dtype(0.5)
+        lanes = _np_lanes(d, e, off, length, 3, True)
+        if case == "pivmin0":
+            lanes["pivmin"][:] = 0
+        if case == "bracket":
+            lanes["hi"][0, 6:] = np.inf
+        with np.errstate(over="ignore"):
+            e2 = e * e
+        s, en, frm = _walks(d, e2, *(lanes[name][0] for name in (
+            "lo", "hi", "pivmin", "start", "end")))
+        if case == "leak":
+            assert frm[6] == 6 and frm[9] == 14    # back past the leak
+        elif case == "bracket":
+            assert frm[3] == 6 and np.all(frm[6:] == 0)
+        else:
+            assert np.all(frm[3:] == 0)            # every later walk from 0
+        got, _, _ = segmented_tree(d[None], e[None], lanes, n_iter, 64, 3)
+        assert _same_bits(got, _plain_segmented(d[None], e[None], lanes,
+                                                n_iter)), case
+
+
+def test_segmented_tree_matches_repro_on_packed_rows():
+    """The model against ``repro``'s segmented op (Pallas, interpret mode)
+    on drawn packed rows of one width, within repro's Sturm tolerance (and
+    bitwise the plain version): empty slots, length-1 segments, repeated
+    eigenvalues, scales from 1e-19 to 1e150 (1e15 in float32, where e^2
+    stays finite in every implementation)."""
+    from repro.kernels.sturm import ops as r_ops
+
+    rng = np.random.default_rng(11)
+    width = 24
+    for dtype, top in ((np.float64, 150), (np.float32, 15)):
+        name = "float64" if dtype == np.float64 else "float32"
+        n_iter = _iters(dtype)
+        for case in range(6):
+            lengths = list(rng.integers(0, 9, size=4))
+            lengths[case % 4] = [0, 1, 9, 3][case % 4]
+            lengths[-1] = width - sum(lengths[:-1])
+            if lengths[-1] < 0:
+                lengths = [8, 8, 8, 0]
+            kinds = list(rng.choice(_KINDS, size=4))
+            scale = 10.0 ** rng.uniform(-19, top)
+            d, e, off, length = _packed_band(rng, lengths, kinds, dtype,
+                                             scale, 0.0)
+            for k, largest in ((3, True), (2, False)):
+                lanes = _np_lanes(d, e, off, length, k, largest)
+                got, _, _ = segmented_tree(d[None], e[None], lanes, n_iter,
+                                           64, k)
+                assert _same_bits(got, _plain_segmented(d[None], e[None],
+                                                        lanes, n_iter))
+                ref = np.asarray(r_ops.sturm_eigenvalues_segmented(
+                    jnp.asarray(d[None]), jnp.asarray(e[None]),
+                    jnp.asarray(off[None]), jnp.asarray(length[None]), k=k,
+                    largest=largest))
+                np.testing.assert_allclose(
+                    got.reshape(ref.shape), ref, *TOL["sturm"][name])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+def test_segmented_tree_on_warm_brackets(dtype):
+    """The session's case: one full-band segment, a bracket a lane from
+    interlacing (some stale, so that they fall back to Gershgorin); bitwise
+    the plain version and within repro's Sturm tolerance of repro's
+    bracketed op."""
+    from repro.kernels.sturm import ops as r_ops
+    from repro_torch.kernels.sturm.ops import bracketed_lanes
+
+    name = "float64" if dtype == np.float64 else "float32"
+    rng = np.random.default_rng(3)
+    n, k = 16, 12
+    d, e = _band("random", n, 2, dtype, 1.0, 9)
+    lam = np.linalg.eigvalsh(np.stack([np.diag(d[r].astype(np.float64))
+                                       + np.diag(e[r], 1) + np.diag(e[r], -1)
+                                       for r in range(2)]))[:, -k:]
+    width = 10.0 ** rng.uniform(-6, -1, lam.shape)
+    lo, hi = (lam - width).astype(dtype), (lam + width).astype(dtype)
+    lo[1, :3] += 4.0  # stale
+    hi[1, :3] += 4.0
+    lanes = {key: v.numpy() for key, v in bracketed_lanes(
+        torch.as_tensor(d), torch.as_tensor(e), torch.as_tensor(lo),
+        torch.as_tensor(hi), k=k, largest=True).items()}
+    for threads in (32, 96):
+        got, _, rounds = segmented_tree(d, e, lanes, _iters(dtype), threads,
+                                        k)
+        assert _same_bits(got, _plain_segmented(d, e, lanes, _iters(dtype)))
+    ref = np.asarray(r_ops.sturm_eigenvalues_bracketed(
+        jnp.asarray(d), jnp.asarray(e), jnp.asarray(lo), jnp.asarray(hi),
+        k=k, largest=True))
+    np.testing.assert_allclose(got, ref, *TOL["sturm"][name])
+    # Three levels a round cut the 64-deep (32) chain to about a third.
+    assert rounds <= -(-_iters(dtype) // 3) + 1
+
+
+def _smoke_packed_rows(dtype, rows, seg_n, slots, seed):
+    """Rows of the packed program's kind: ``slots`` tridiagonal bands of
+    ``seg_n`` (the Householder bands of seeded symmetric matrices) with zero
+    junctions."""
+    from repro_torch.linalg.householder import tridiagonalize
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((rows * slots, seg_n, seg_n))
+    a = torch.as_tensor((a + np.swapaxes(a, 1, 2)) / 2).to(
+        torch.float64 if dtype == np.float64 else torch.float32)
+    d, e, _ = tridiagonalize(a, with_q=False)
+    d = d.numpy().reshape(rows, slots * seg_n)
+    ep = np.zeros((rows * slots, seg_n), dtype)
+    ep[:, :seg_n - 1] = e.numpy()
+    e = ep.reshape(rows, slots * seg_n)[:, :-1]
+    off = np.tile(np.arange(slots, dtype=np.int32) * seg_n, (rows, 1))
+    length = np.full((rows, slots), seg_n, np.int32)
+    return d, e, off, length
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+def test_segmented_tree_walks_a_fraction_of_the_whole_band(dtype):
+    """The work of the design against the kernel of one lane a thread over
+    the whole band, counted in recurrence steps, on two rows of the packed
+    program's kind (16 segments of n = 32 a row, k = 8) and two of the
+    synthetic packed shape's (4 segments a row; n = 120 here for time).
+    With one thread a bracket (8 threads a block of 8 lanes) the walks
+    restart at the junctions and the tree shares and stops, so the design
+    walks about 0.8 / S of the whole-band steps (0.82 / 0.80 in float64,
+    0.73 / 0.69 in float32); one warp a segment evaluates speculative
+    levels too, about 1.2 / S, in half the rounds."""
+    k = 8
+    for seg_n, slots in ((32, 16), (120, 4)):
+        d, e, off, length = _smoke_packed_rows(dtype, 2, seg_n, slots, 1)
+        assert np.all(e[:, off[0, 1:] - 1] == 0)    # exact zero junctions
+        lanes = {key: np.concatenate([_np_lanes(d[r], e[r], off[r],
+                                                length[r], k, True)[key]
+                                      for r in range(2)])
+                 for key in ("lo", "hi", "pivmin", "start", "end", "targets")}
+        whole = lanes["lo"].size * _iters(dtype) * d.shape[1]
+        plain = _plain_segmented(d, e, lanes, _iters(dtype))
+        got, lean, lean_rounds = segmented_tree(d, e, lanes, _iters(dtype),
+                                                k, k)
+        assert _same_bits(got, plain)
+        got, wide, wide_rounds = segmented_tree(d, e, lanes, _iters(dtype),
+                                                32, k)
+        assert _same_bits(got, plain)
+        assert lean < 0.9 / slots * whole, (seg_n, lean / whole)
+        assert wide < 1.4 / slots * whole, (seg_n, wide / whole)
+        assert wide_rounds < 0.6 * lean_rounds
