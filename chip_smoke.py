@@ -47,7 +47,24 @@ Phases, each of which fails the run (non-zero exit) on error:
    only the in-segment mass (as repro's chain does); its wall time beside
    ``torch.linalg.eigh`` of the (1024, 32, 32) requests, split by stage;
    and the eigh chain the same way at the server's default width 64;
-7. time each kernel (CUDA events) beside its bound, its plain version and
+7. run the dense compositions (``eei_dense`` and ``eei_dense_windowed``,
+   named plans) on 64 seeded matrices of n = 64 per dtype: solve, windowed
+   and full top-k (k = 8), eigenvalues, held to phase 3's gates; kernel 2
+   must launch once per solve and top-k (with I = k in the windowed one) and
+   never for eigenvalues, each launch within tolerance of its plain
+   version, the windowed rows bitwise the full table's; each call timed
+   beside ``torch.linalg.eigh`` of the stack;
+8. run the Krylov compositions (``eei_krylov``, and ``eei_krylov_si`` at
+   the direct leg's band m = 256) on the throughput lane's n = 4096
+   matrix, k = 16, per dtype: top-k and
+   eigenvalues within 5e-3 of float64 eigh (eigenvalue error over the
+   span, residual over max |lambda|); every kernel-1 launch (the window on
+   the band and the Lanczos residual checks) bitwise its plain version;
+   the Lanczos steps per call; top-k timed beside ``torch.linalg.eigh``
+   and, once in float32, the windowed Householder chain;
+9. run ``calibrate(smoke=True)`` on the card and check every field, and
+   print the committed calibration table (the smoke sweep writes no file);
+10. time each kernel (CUDA events) beside its bound, its plain version and
    the library yardstick (the Sturm kernel also on the k = 8 window, the
    segmented kernel also alone at the shapes the session and the packed
    program launch it, there also by its card time in a CUDA graph),
@@ -55,8 +72,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``torch.linalg.eigh`` and the session update against a top-k from
    scratch.
 
-Every launch count is set to 0 just before each of phases 3, 4, 5 and 6
-(each run of the packed program) and read just after, and a kernel that
+Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
+run of the packed program), 7 and 8 and read just after, and a kernel that
 its path did not launch fails the run.
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is the JSON verdict.
@@ -119,6 +136,25 @@ SESSION_TOL = 5e-3
 #: (tests/test_server.py:1118-1145).
 PACK_B, PACK_ROW_N, PACK_SEG_N, PACK_EIGH_ROW_N = 64, 512, 32, 64
 PACK_TOL = 5e-4
+#: The dense compositions: DENSE_B seeded symmetric matrices of n = DENSE_N
+#: (the static dense crossover, plan.DENSE_CROSSOVER_N), windows of K.
+DENSE_B, DENSE_N = 64, 64
+#: The Krylov compositions on the throughput lane's matrix
+#: (benchmarks/throughput.py:633-637) at its target (n, k)
+#: (throughput.py:136), gated at its KRYLOV_TOL (throughput.py:139): the
+#: largest eigenvalue error over the spectral span and the largest eigenpair
+#: residual over max |lambda|, against float64 eigh.
+KRYLOV_N, KRYLOV_K, KRYLOV_TOL = 4096, 16, 5e-3
+#: Band of the shift-and-invert leg: the direct leg's default_m(4096, 16).
+#: At its own default, default_si_m(4096, 16) = 128, shift-and-invert
+#: misses KRYLOV_TOL on this matrix in repro and in the port alike (the
+#: Gershgorin shift sits ~25x the spectral radius away, so the inverted
+#: operator separates nothing): tests/test_torch_lanczos.py::
+#: test_shift_invert_default_band_on_the_lane_matrix_matches_repro.
+KRYLOV_SI_M = 256
+#: The Householder leg beside the Krylov topk is timed at KRYLOV_N unless
+#: one call there took longer than this (s); then at n = 1024.
+DENSE_LEG_LIMIT_S = 60.0
 
 
 class PhaseError(RuntimeError):
@@ -185,6 +221,14 @@ def main() -> int:
     for name, pk in packed.items():
         records.append(_packed_record(torch, dev, name, pk))
         _print_record(records[-1])
+    t_new = time.perf_counter()
+    dense = _phase_dense(torch, dev)
+    krylov = _phase_krylov(torch, dev)
+    _phase_calibration(torch)
+    records += _dense_records(torch, dense)
+    records += _krylov_records(torch, krylov)
+    print(f"[timing] the dense, Krylov and calibration phases took "
+          f"{time.perf_counter() - t_new:.1f} s")
 
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(
@@ -588,7 +632,8 @@ def _check_solve(torch, a, res, name):
         # control: the limit must sit well below its best row, so that the
         # check fails a table that knows nothing of the eigenvectors.
         worst = float(_row_err(mags, mags_ref).max())
-        control = _row_err(torch.full_like(mags_ref, 1.0 / N), mags_ref)
+        control = _row_err(torch.full_like(mags_ref, 1.0 / a.shape[-1]),
+                           mags_ref)
         print(f"[engine] solve {name}: magnitude rows vs eigh, relative "
               f"2-norm error: worst {worst:.3e}; uniform 1/n control: best "
               f"row {float(control.min()):.3e}, worst {float(control.max()):.3e}"
@@ -611,22 +656,24 @@ def _row_err(mags, ref):
 def _check_topk(torch, a, res, name, what):
     lam_ref, v_ref = torch.linalg.eigh(a.double())
     lam, vecs = res
-    check(tuple(vecs.shape) == (B, K, N), f"{what} {name}: shape")
+    k = lam.shape[-1]
+    check(tuple(vecs.shape) == (a.shape[0], k, a.shape[-1]),
+          f"{what} {name}: shape")
     check(bool(torch.isfinite(vecs).all()), f"{what} {name}: non-finite")
     norm2 = lam_ref.abs().amax(dim=-1, keepdim=True)
     res_norm = (torch.einsum("bij,bkj->bki", a.double(), vecs.double())
                 - lam.double()[..., None] * vecs.double()).norm(dim=-1)
     fro = a.double().norm(dim=(-2, -1))[:, None]
     if name == "float64":
-        _max_err(torch, lam, lam_ref[:, -K:], 1e-6, 1e-8,
+        _max_err(torch, lam, lam_ref[:, -k:], 1e-6, 1e-8,
                       f"{what} {name} eigenvalues")
-        ref = v_ref[..., -K:].transpose(-1, -2)
+        ref = v_ref[..., -k:].transpose(-1, -2)
         err = torch.minimum((vecs - ref).abs().amax(-1),
                             (vecs + ref).abs().amax(-1))
         check(float(err.max()) < 1e-5, f"{what} {name}: vectors off by "
               f"{float(err.max()):.3e}")
     else:
-        err = (lam.double() - lam_ref[:, -K:]).abs() / norm2
+        err = (lam.double() - lam_ref[:, -k:]).abs() / norm2
         check(float(err.max()) <= 2e-4, f"{what} {name}: eigenvalue error "
               f"{float(err.max()):.3e} of ||A||_2 > 2e-4")
         nrm = (vecs.double().norm(dim=-1) - 1).abs().max()
@@ -635,7 +682,7 @@ def _check_topk(torch, a, res, name, what):
     worst = float((res_norm / fro).max())
     check(worst <= 2e-3, f"{what} {name}: residual {worst:.3e} of ||A||_F "
           f"> 2e-3")
-    lam_err = float((lam.double() - lam_ref[:, -K:]).abs().max())
+    lam_err = float((lam.double() - lam_ref[:, -k:]).abs().max())
     print(f"[engine] {what} {name}: within tolerance of torch.linalg.eigh; "
           f"max eigenvalue error {lam_err:.3e}, worst residual {worst:.3e} "
           f"of ||A||_F")
@@ -679,17 +726,17 @@ def _read_counts():
 
 def _phase_engine(torch, dev, stack):
     """The main path through the entry points a user calls."""
-    from repro_torch import SolverEngine, plan_for
+    from repro_torch import SolverEngine, SolverPlan, plan_for
 
+    # The plans are named, so that this phase launches what it launched
+    # before the planner read the card's calibration table; what plan_for
+    # picks under that table is printed beside them.
     shape = tuple(stack.shape)
-    windowed = plan_for(shape, k=K)
-    check((windowed.method, windowed.spectrum, windowed.backend)
-          == ("eei_tridiag", "windowed", "cuda"),
-          f"plan_for picked {windowed} for top-{K} of n={N}")
-    full = plan_for(shape)
-    check((full.method, full.backend) == ("eei_tridiag", "cuda"),
-          f"plan_for picked {full} for the full table of n={N}")
-    topk_full = plan_for(shape, k=K, spectrum="full")
+    windowed = SolverPlan(method="eei_tridiag", spectrum="windowed")
+    full = SolverPlan(method="eei_tridiag")
+    topk_full = full
+    print(f"[engine] plan_for{shape} picks {plan_for(shape)}; with k={K} "
+          f"{plan_for(shape, k=K)}")
 
     inputs = {name: stack.to(dt) for name, dt in
               (("float64", torch.float64), ("float32", torch.float32))}
@@ -736,13 +783,13 @@ def _bound(ops, nbytes, dtype_name):
 
 
 def _phase_timing(torch, dev, stack, kernels, counts):
-    from repro_torch import SolverEngine, plan_for
+    from repro_torch import SolverEngine, SolverPlan
     from repro_torch.engine.engine import ProgramSpec, program
     from repro_torch.kernels.prod_diff.kernel import logabs_sum
     from repro_torch.kernels.sturm.kernel import sturm_bisect
     from repro_torch.linalg.householder import tridiagonal_matrix
 
-    plan = plan_for(tuple(stack.shape))
+    plan = SolverPlan(method="eei_tridiag")
     per_solve = {}
     for name, kd in kernels.items():
         engine = SolverEngine(plan)
@@ -857,19 +904,8 @@ def _phase_timing(torch, dev, stack, kernels, counts):
             print(f"[timing] solve stages {name}, device busy: not measured "
                   f"(the profiler recorded no device time)")
 
-        def wall(fn, reps=3):
-            times = []
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
-            return sorted(times)[len(times) // 2]
-
-        solve_ms = wall(lambda: engine.solve(a))
-        torch.linalg.eigh(a)
-        eigh_ms = wall(lambda: torch.linalg.eigh(a))
+        solve_ms = _wall_ms(torch, lambda: engine.solve(a))
+        eigh_ms = _wall_ms(torch, lambda: torch.linalg.eigh(a))
         print(f"[timing] end to end {name} ({B}, {N}, {N}): SolverEngine.solve "
               f"{solve_ms:.2f} ms, torch.linalg.eigh {eigh_ms:.2f} ms "
               f"(median of 3)")
@@ -1126,7 +1162,7 @@ def _phase_packed(torch, dev):
     and float32.  Kernel 3's launch is held bitwise against its plain
     version on the program's own operands, every slot against float64
     eigvalsh of its request, and the per-slot verify flags are read."""
-    from repro_torch import packed_plan_for, packed_topk_program
+    from repro_torch import SolverPlan, packed_plan_for, packed_topk_program
     from repro_torch.kernels.sturm import kernel as st_kernel
     from repro_torch.kernels.sturm import ops as st_ops
 
@@ -1137,10 +1173,11 @@ def _phase_packed(torch, dev):
             tridiag = row_n > 128
             a, rows, off, length = _packed_layout(PACK_B, row_n, PACK_SEG_N,
                                                   SEED + 7)
-            plan = packed_plan_for(row_n)
-            want = ("eei_tridiag", "windowed") if tridiag else ("eigh", "full")
-            check((plan.method, plan.spectrum, plan.backend) == want + ("cuda",),
-                  f"packed_plan_for({row_n}) picked {plan}")
+            # Each chain named, whatever the calibration table picks.
+            plan = (SolverPlan(method="eei_tridiag", spectrum="windowed")
+                    if tridiag else SolverPlan(method="eigh"))
+            print(f"[packed] packed_plan_for({row_n}) picks "
+                  f"{packed_plan_for(row_n)}")
             prog = packed_topk_program(plan, K, True, verify=True)
             rows_t = torch.as_tensor(rows, dtype=dtype, device=dev)
             off_t = torch.as_tensor(off, device=dev)
@@ -1409,7 +1446,7 @@ def _phase_session(torch, dev, stack):
     import numpy as np
 
     from repro_torch import (Rank1Update, SessionConfig, SolverEngine,
-                             SolverPlan, plan_for)
+                             SolverPlan)
     from repro_torch.engine import session as session_mod
     from repro_torch.engine.verify import verify_topk_host
     from repro_torch.kernels.sturm import ops as st_ops
@@ -1565,29 +1602,21 @@ def _phase_session(torch, dev, stack):
                   f"session {name}: the re-solves ran no main-path kernel")
 
             # Latency: the warm update against a top-k from scratch (the
-            # session's plan, and the windowed plan plan_for picks) and
+            # session's plan, and the windowed plan) and
             # torch.linalg.eigh, on the stream's last matrix.
             a_t = torch.as_tensor(a_np, dtype=dtype, device=dev)
-            windowed = SolverEngine(plan_for(tuple(a_t.shape), k=K,
-                                             precision=name))
-
-            def wall(fn, reps=3):
-                fn()
-                times_ = []
-                for _ in range(reps):
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    times_.append((time.perf_counter() - t) * 1e3)
-                return float(np.median(times_))
+            windowed = SolverEngine(SolverPlan(
+                method="eei_tridiag", spectrum="windowed", precision=name))
 
             lat = {"update_ms": float(np.median(times)),
                    "update_ms_min": float(np.min(times)),
                    "update_ms_max": float(np.max(times)),
-                   "topk_scratch_ms": wall(lambda: engine.topk(a_t, K)),
-                   "topk_windowed_ms": wall(lambda: windowed.topk(a_t, K)),
-                   "eigh_ms": wall(lambda: torch.linalg.eigh(a_t))}
+                   "topk_scratch_ms": _wall_ms(torch,
+                                               lambda: engine.topk(a_t, K)),
+                   "topk_windowed_ms": _wall_ms(
+                       torch, lambda: windowed.topk(a_t, K)),
+                   "eigh_ms": _wall_ms(torch,
+                                       lambda: torch.linalg.eigh(a_t))}
             print(f"[session] {name} latency (ms): warm update median "
                   f"{lat['update_ms']:.3f} (min {lat['update_ms_min']:.3f}, "
                   f"max {lat['update_ms_max']:.3f}, {SESSION_STREAM} updates)"
@@ -1765,6 +1794,414 @@ def _segment_library_ms(torch, kd, sg):
     del t, w
     torch.cuda.empty_cache()
     return start.elapsed_time(end) * rows / SEG_LIBRARY_ROWS, err
+
+
+# -- the dense and Krylov compositions, and the calibration sweep ------------
+
+
+def _wall_ms(torch, fn, reps=3):
+    """Median wall ms of ``reps`` calls after one warm-up, synchronized."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _stage_split(torch, plan, spec, a):
+    """One more run of ``plan``'s ``spec`` program on ``a``, stage by stage
+    with a synchronize around each: ``"name ms, ..."``."""
+    from repro_torch.engine.engine import program
+
+    prog = program(plan, spec)
+    state = prog.initial_state(a)
+    parts = []
+    for sig, fn in prog.stages:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state.update(fn(state))
+        torch.cuda.synchronize()
+        parts.append(f"{sig.name} {(time.perf_counter() - t) * 1e3:.3f}")
+    return ", ".join(parts)
+
+
+def _capture(module, attr, calls):
+    """Replace ``module.attr`` (a kernel's entry, by the name its caller
+    looks it up under) with a wrapper that appends ``(args, kwargs,
+    result)`` to ``calls``; returns the undo.  The wrappers' own launch
+    counts are untouched."""
+    launch = getattr(module, attr)
+
+    def capturing(*args, **kwargs):
+        out = launch(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, attr, capturing)
+    return lambda: setattr(module, attr, launch)
+
+
+def _phase_dense(torch, dev):
+    """``eei_dense`` and ``eei_dense_windowed`` through the engine: every
+    kernel-2 launch captured, held against its plain version and, for the
+    windowed one, bitwise against the full table's rows."""
+    import numpy as np
+
+    from repro_torch import SolverEngine, SolverPlan, plan_for
+    from repro_torch.engine.engine import ProgramSpec
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+    from repro_torch.kernels.prod_diff import ops as pd_ops
+
+    rng = np.random.default_rng(SEED + 8)
+    a_np = rng.standard_normal((DENSE_B, DENSE_N, DENSE_N))
+    a_np = (a_np + np.swapaxes(a_np, 1, 2)) / 2
+    shape = a_np.shape
+    print(f"[dense] plan_for{shape} picks {plan_for(shape)}; with k={K} "
+          f"{plan_for(shape, k=K)}")
+    full = SolverPlan(method="eei_dense")
+    windowed = SolverPlan(method="eei_dense", spectrum="windowed")
+    full_shape = (DENSE_B, DENSE_N, DENSE_N, DENSE_N - 1)
+    win_shape = (DENSE_B, K, DENSE_N, DENSE_N - 1)
+    out = {}
+    for name in ("float64", "float32"):
+        a = torch.as_tensor(a_np, dtype=getattr(torch, name), device=dev)
+        runs = {
+            "solve": lambda: SolverEngine(full).solve(a),
+            "topk windowed": lambda: SolverEngine(windowed).topk(a, K),
+            "topk full": lambda: SolverEngine(full).topk(a, K),
+            "eigenvalues": lambda: SolverEngine(full).eigenvalues(a),
+            "eigenvalues k": lambda: SolverEngine(full).eigenvalues(a, k=K),
+        }
+        calls, results, per_call = [], {}, {}
+        undo = _capture(pd_ops, "logabs_sum_batched", calls)
+        try:
+            _reset_counts()
+            for what, fn in runs.items():
+                before = pd_kernel.logabs_sum.launches
+                results[what] = fn()
+                per_call[what] = pd_kernel.logabs_sum.launches - before
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        finally:
+            undo()
+        print(f"[dense] {name} {shape}, k={K}: kernel-2 launches per call "
+              f"{per_call}; launches on the dense path {counts}")
+        check(per_call == {"solve": 1, "topk windowed": 1, "topk full": 1,
+                           "eigenvalues": 0, "eigenvalues k": 0},
+              f"dense {name}: kernel-2 launches per call {per_call}")
+        check(counts == {**{key: 0 for key in counts}, "logabs_sum": 3},
+              f"dense {name}: the dense path launched {counts}")
+        shapes = [tuple(c[0][0].shape) + tuple(c[0][1].shape[1:])
+                  for c in calls]
+        check(shapes == [full_shape, win_shape, full_shape],
+              f"dense {name}: kernel-2 launch shapes {shapes}")
+        errs, plain_ms = [], []
+        for (lam, mu, floor), _, got in calls[:2]:
+            plain, ms = _plain_ms(torch, lambda: pd_kernel.logabs_sum_plain(
+                lam, mu, floor))
+            errs.append(_max_err(torch, got, plain,
+                                 *TOL[("prod_diff", name)],
+                                 f"dense {name} kernel 2 {tuple(lam.shape)}"))
+            plain_ms.append(ms)
+        # The windowed launch's rows against the full table's, bitwise: on
+        # the solve's own operands, and on the windowed program's where its
+        # spectra are the solve's.
+        (lam, mu, floor), _, table = calls[0]
+        idx = torch.arange(DENSE_N - K, DENSE_N, device=dev)
+        rows = pd_kernel.logabs_sum(lam[:, idx].contiguous(), mu, floor)
+        check(torch.equal(rows, table[:, idx]),
+              f"dense {name}: I = k rows != the full table's rows")
+        (w_lam, w_mu, w_floor), _, w_rows = calls[1]
+        same = (torch.equal(w_lam, lam[:, idx]) and torch.equal(w_mu, mu)
+                and torch.equal(w_floor, floor))
+        if same:
+            check(torch.equal(w_rows, table[:, idx]),
+                  f"dense {name}: the windowed program's launch != the "
+                  f"solve's table rows")
+        print(f"[dense] {name}: kernel 2 within tolerance of its plain "
+              f"version at {full_shape} (max abs err {errs[0]:.3e}) and "
+              f"{win_shape} ({errs[1]:.3e}); I = k rows bitwise the full "
+              f"table's (the windowed program's own launch: "
+              f"{'bitwise too' if same else 'its eigvalsh differed, not compared'})")
+        _check_solve(torch, a, results["solve"], f"{name} dense")
+        _check_topk(torch, a, results["topk windowed"], name,
+                    "dense topk windowed")
+        _check_topk(torch, a, results["topk full"], name, "dense topk full")
+        _check_eigenvalues(torch, a, results["eigenvalues"], name,
+                           "dense eigenvalues")
+        _check_eigenvalues(torch, a, results["eigenvalues k"], name,
+                           "dense eigenvalues k", k=K)
+        if name == "float32":
+            _minor_eigvalsh_precision(torch, a)
+        runs[f"topk, plan_for's {plan_for(shape, k=K).method}"] = \
+            lambda: SolverEngine(plan_for(shape, k=K)).topk(a, K)
+        times = {what: _wall_ms(torch, fn) for what, fn in runs.items()}
+        times["torch.linalg.eigh"] = _wall_ms(
+            torch, lambda: torch.linalg.eigh(a))
+        print(f"[dense] {name} {shape} wall ms (median of 3): " + ", ".join(
+            f"{what} {ms:.3f}" for what, ms in times.items()))
+        for what, plan, spec in (
+                ("solve", full, ProgramSpec("solve")),
+                ("topk windowed", windowed, ProgramSpec("topk", K, True))):
+            print(f"[dense] {name} {what} by stage (ms): "
+                  + _stage_split(torch, plan, spec, a))
+        out[name] = dict(calls=calls[:2], errs=errs, plain_ms=plain_ms,
+                         counts=counts, times=times)
+    return out
+
+
+def _minor_eigvalsh_precision(torch, a):
+    """Why the cuda backend takes a float32 stack's dense spectra in
+    float64: ``eigvalsh`` of its minors on the card in both dtypes, timed
+    and held against LAPACK's float64 on the host."""
+    from repro_torch.core import identity
+
+    ref = identity.minor_spectra(a.double().cpu())
+    for x in (a, a.double()):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mu = identity.minor_spectra(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        err = float((mu.double().cpu() - ref).abs().max())
+        print(f"[dense] torch.linalg.eigvalsh of the {tuple(mu.shape[:2])} "
+              f"minors of the float32 stack, in {x.dtype} on the card: "
+              f"{ms:.1f} ms, max abs error {err:.3e} against float64 "
+              f"LAPACK on the host")
+
+
+def _dense_records(torch, dense):
+    """Kernel 2 at the dense shapes: the engine's own launches."""
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+
+    records = []
+    for name, dd in dense.items():
+        for i, what in enumerate(("eei_dense", "eei_dense_windowed")):
+            (lam, mu, floor), _, _ = dd["calls"][i]
+            b, i_n = lam.shape
+            j_n, k_n = mu.shape[1:]
+            fn = lambda: pd_kernel.logabs_sum(lam, mu, floor)  # noqa: E731
+            ms = _events_ms(torch, fn, warmup=3, reps=50)
+            device_ms = _kernel_device_ms(torch, fn)
+            nbytes = (b * i_n + b * j_n * k_n + b + b * i_n * j_n) \
+                * lam.element_size()
+            bound, by = _bound(b * i_n * j_n * k_n * PROD_DIFF_OPS_PER_TERM,
+                               nbytes, name)
+            records.append(_record(
+                f"logabs_sum[{what} {b}x{i_n}x{j_n}x{k_n} {name}]",
+                "prod_diff", launches=dd["counts"]["logabs_sum"],
+                err=dd["errs"][i], ms=ms, plain_ms=dd["plain_ms"][i],
+                bound_ms=bound, bound_by=by, library_ms=None,
+                device_ms=device_ms, launches_per_call=1))
+            _print_record(records[-1])
+    return records
+
+
+def _phase_krylov(torch, dev):
+    """``eei_krylov`` and ``eei_krylov_si`` on the throughput lane's matrix:
+    every kernel-1 launch captured and held bitwise against its plain
+    version, the Lanczos steps of every call, the lane's accuracy gates."""
+    import numpy as np
+
+    from repro_torch import SolverEngine, SolverPlan, plan_for
+    from repro_torch.engine.engine import ProgramSpec
+    from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.kernels.sturm import ops as st_ops
+    from repro_torch.linalg import lanczos
+
+    n, k = KRYLOV_N, KRYLOV_K
+    print(f"[krylov] plan_for((1, {n}, {n}), k={k}) picks "
+          f"{plan_for((1, n, n), k=k)}")
+    raw = np.random.default_rng(n + k).standard_normal((n, n))
+    plans = {"eei_krylov": SolverPlan(method="eei_krylov"),
+             "eei_krylov_si": SolverPlan(method="eei_krylov_si",
+                                         krylov_m=KRYLOV_SI_M)}
+    out = {}
+    for name in ("float64", "float32"):
+        x = raw.astype(np.float32) if name == "float32" else raw
+        a = torch.as_tensor((x + x.T) / 2, device=dev)[None]  # (1, n, n)
+        a64 = a[0].double()
+        lam_ref = torch.linalg.eigvalsh(a64)
+        span = float(lam_ref[-1] - lam_ref[0])
+        top = float(lam_ref.abs().max())
+        calls, steps, results, per_call = [], [], {}, {}
+        undo_sturm = _capture(st_ops, "sturm_bisect", calls)
+        undo_lanczos = _capture(lanczos, "lanczos_partial", steps)
+        try:
+            _reset_counts()
+            for method, plan in plans.items():
+                eng = SolverEngine(plan)
+                for kind in ("topk", "eigenvalues"):
+                    c0, s0 = len(calls), len(steps)
+                    results[(method, kind)] = (
+                        eng.topk(a, k) if kind == "topk"
+                        else eng.eigenvalues(a, k=k))
+                    per_call[(method, kind)] = (
+                        len(calls) - c0,
+                        [int(r[2].steps[0]) for r in steps[s0:]])
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        finally:
+            undo_sturm()
+            undo_lanczos()
+        for (method, kind), (launched, st) in per_call.items():
+            print(f"[krylov] {name} {method} {kind}: {launched} kernel-1 "
+                  f"launches, Lanczos steps {st}")
+        print(f"[krylov] {name}: launches on the Krylov path {counts}")
+        check(counts["sturm_bisect"] == len(calls) > 0
+              and all(v == 0 for key, v in counts.items()
+                      if key != "sturm_bisect"),
+              f"krylov {name}: launches {counts} for {len(calls)} captured")
+        # Every launch bitwise its plain version; a launch identical to one
+        # already checked (the eigenvalues program repeats its top-k's
+        # reduce) is not run again.
+        checked, plain_ms = [], {}
+        for i, ((d, e, bounds), kw, got) in enumerate(calls):
+            same = [j for j, (d2, e2, b2, kw2) in checked
+                    if kw2 == kw and torch.equal(d, d2) and torch.equal(e, e2)
+                    and torch.equal(bounds, b2)]
+            if same:
+                check(torch.equal(got, calls[same[0]][2]),
+                      f"krylov {name}: launch {i} differs from launch "
+                      f"{same[0]} on the same operands")
+                continue
+            plain, ms = _plain_ms(torch, lambda: st_kernel.sturm_bisect_plain(
+                d, e, bounds, **kw))
+            check(torch.equal(got, plain), f"krylov {name}: kernel-1 launch "
+                  f"{i} ({tuple(d.shape)}, {kw}) != its plain version")
+            checked.append((i, (d, e, bounds, kw)))
+            plain_ms[i] = ms
+        print(f"[krylov] {name}: all {len(calls)} kernel-1 launches bitwise "
+              f"their plain version ({len(checked)} distinct)")
+        worst = {}
+        for (method, kind), res in results.items():
+            lam = (res.eigenvalues if kind == "topk" else res)[0].double()
+            rel = float((lam - lam_ref[-k:]).abs().max()) / span
+            check(rel <= KRYLOV_TOL, f"krylov {name} {method} {kind}: "
+                  f"eigenvalue error {rel:.3e} of the span > {KRYLOV_TOL:g}")
+            res_rel, said = None, ""
+            if kind == "topk":
+                v = res.vectors[0].double()
+                res_rel = float((a64 @ v.T - v.T * lam).norm(dim=0).max()) \
+                    / top
+                check(res_rel <= KRYLOV_TOL, f"krylov {name} {method}: "
+                      f"residual {res_rel:.3e} of max|lambda| > "
+                      f"{KRYLOV_TOL:g}")
+                said = f", residual {res_rel:.3e} of max|lambda|"
+            worst[(method, kind)] = (rel, res_rel)
+            print(f"[krylov] {name} {method} {kind}: eigenvalue error "
+                  f"{rel:.3e} of the span{said} (limit {KRYLOV_TOL:g})")
+        times = {m: _wall_ms(torch, lambda e_=SolverEngine(p): e_.topk(a, k))
+                 for m, p in plans.items()}
+        picked = plan_for(tuple(a.shape), k=k)
+        times[f"topk, plan_for's {picked.method}"] = _wall_ms(
+            torch, lambda: SolverEngine(picked).topk(a, k))
+        times["torch.linalg.eigh"] = _wall_ms(
+            torch, lambda: torch.linalg.eigh(a))
+        if name == "float32":
+            times.update(_householder_leg(torch, a, k))
+        print(f"[krylov] {name} (1, {n}, {n}), k={k}, wall ms: " + ", ".join(
+            f"{what} {ms:.3f}" for what, ms in times.items()))
+        for method, plan in plans.items():
+            print(f"[krylov] {name} {method} topk by stage (ms): "
+                  + _stage_split(torch, plan, ProgramSpec("topk", k, True), a))
+        # The window on the band of eei_krylov's top-k: its last launch.
+        c0 = per_call[("eei_krylov", "topk")][0]
+        window = calls[c0 - 1]
+        out[name] = dict(window=window, plain_ms=plain_ms.get(c0 - 1),
+                         counts=counts, times=times, worst=worst,
+                         steps=per_call)
+    return out
+
+
+def _householder_leg(torch, a, k):
+    """The windowed Householder chain, the lane's dense leg, once: at the
+    matrix's own n, or at n = 1024 when that call took longer than
+    DENSE_LEG_LIMIT_S."""
+    from repro_torch import SolverEngine, SolverPlan
+
+    eng = SolverEngine(SolverPlan(method="eei_tridiag", spectrum="windowed"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.topk(a, k)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    n = a.shape[-1]
+    if s <= DENSE_LEG_LIMIT_S:
+        return {f"windowed Householder chain, n={n}, once": s * 1e3}
+    small = a[:, :1024, :1024].contiguous()
+    ms = _wall_ms(torch, lambda: eng.topk(small, k), reps=1)
+    return {f"windowed Householder chain, n={n}, once (over the limit)":
+            s * 1e3, "windowed Householder chain, n=1024": ms}
+
+
+def _krylov_records(torch, krylov):
+    """Kernel 1's window on the Krylov band: the engine's own launch."""
+    from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.linalg.householder import tridiagonal_matrix
+
+    records = []
+    for name, kd in krylov.items():
+        (d, e, bounds), kw, got = kd["window"]
+        rows, m = d.shape
+        lanes = kw["m"]
+        fn = lambda: st_kernel.sturm_bisect(d, e, bounds, **kw)  # noqa: E731
+        ms = _events_ms(torch, fn, warmup=5, reps=100)
+        device_ms = _kernel_device_ms(torch, fn)
+        plain_ms = kd["plain_ms"]
+        if plain_ms is None:
+            _, plain_ms = _plain_ms(torch, lambda: st_kernel.sturm_bisect_plain(
+                d, e, bounds, **kw))
+        bound, by = _sturm_cost(rows, m, lanes, kw["n_iter"],
+                                d.element_size(), name)
+        dense = tridiagonal_matrix(d, e)
+        lib_ms = _events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
+                            warmup=2, reps=20)
+        records.append(_record(
+            f"sturm_bisect[krylov window {rows}x{m}, k={lanes} {name}]",
+            "sturm", launches=kd["counts"]["sturm_bisect"], err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms, device_ms=device_ms))
+        _print_record(records[-1])
+    return records
+
+
+def _phase_calibration(torch):
+    """``calibrate(smoke=True)`` on the card, every field checked; and the
+    committed table's fields.  Nothing is written."""
+    from repro_torch.engine import autotune
+
+    t = time.perf_counter()
+    table = autotune.calibrate(smoke=True)
+    seconds = time.perf_counter() - t
+    d = table.to_dict()
+    print(f"[calibration] smoke sweep on the card in {seconds:.1f} s: "
+          f"{json.dumps(d)}")
+    sizes = (7, 8, 16, 32)
+    check(table.backend == "cuda" and "-cuda-" in table.host,
+          f"calibration: backend {table.backend!r}, host {table.host!r}")
+    for key in ("eigh_crossover_n", "dense_crossover_n",
+                "cuda_eigh_crossover_n", "cuda_dense_crossover_n"):
+        check(d[key] in sizes, f"calibration: {key} = {d[key]}")
+    check(0.0 <= table.windowed_k_frac <= 1.0,
+          f"calibration: windowed_k_frac = {table.windowed_k_frac}")
+    check(table.krylov_n_min in (64, 128, autotune.KRYLOV_NEVER),
+          f"calibration: krylov_n_min = {table.krylov_n_min}")
+    check(table.pack_n_max in (0, 8, 16) and
+          table.packed_eigh_n_max in (16, 32, 64),
+          f"calibration: pack_n_max = {table.pack_n_max}, "
+          f"packed_eigh_n_max = {table.packed_eigh_n_max}")
+    committed = autotune.load_table(autotune.REPO_DEFAULT_PATH)
+    print(f"[calibration] committed default "
+          f"({autotune.REPO_DEFAULT_PATH.name}): "
+          f"{json.dumps(committed.to_dict())}")
+    active = autotune.get_table()
+    check(active is not None and active.source == "repo-default",
+          f"calibration: the planner reads {active}")
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

@@ -8,7 +8,9 @@ minors ``M_j`` with eigenvalues ``mu[j, :]``:
 The plain PyTorch twin of the log-space functions of ``repro.core.identity``
 (sums of ``log|diff|``, immune to over- and underflow), batched over
 leading axes.  The paper's ``component_*`` variant ladder waits for a later
-slice.  Numerator tables are built in row chunks so the ``(..., i, j, k)``
+slice; the spectra of ``A`` and of its dense minors
+(:func:`matrix_spectrum`, :func:`minor_spectra`) are LAPACK's, as in
+``repro``.  Numerator tables are built in row chunks so the ``(..., i, j, k)``
 difference tensor never exists whole: at ``b = 16, n = 600`` it would be
 27.6 GB in float64.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import minors as minors_lib
 from repro_torch.linalg.sturm import _pivmin
 
 #: Elements of one ``(..., i_chunk, j, k)`` difference block.
@@ -32,6 +35,17 @@ def _row_chunks(lam_rows: torch.Tensor, mu: torch.Tensor, block):
     i_n = lam_rows.shape[-1]
     parts = [block(lam_rows[..., i0:i0 + chunk]) for i0 in range(0, i_n, chunk)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def matrix_spectrum(a: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of ``a (..., n, n)``, ascending."""
+    return torch.linalg.eigvalsh(a)
+
+
+def minor_spectra(a: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of every minor ``M_j`` of ``a (..., n, n)``:
+    ``(..., n, n-1)``, ascending (one batched ``eigvalsh`` of all minors)."""
+    return torch.linalg.eigvalsh(minors_lib.all_minors(a))
 
 
 def spectral_floor(lam: torch.Tensor) -> torch.Tensor:

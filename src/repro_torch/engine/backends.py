@@ -9,31 +9,43 @@
                 k-window and all stacked minor bands, one launch each), the
                 segmented Sturm bisection (the k-windows of every segment of
                 packed rows, and warm per-lane brackets in the session
-                update) and the prod-diff numerator table.  On CPU tensors
+                update) and the prod-diff numerator table (whole, or only
+                the k selected rows).  On CPU tensors
                 the kernel wrappers run their plain versions.
 
-The Householder reduce, the minor-determinant recurrence and the sign
-recurrence are plain PyTorch on every backend, as ``repro`` leaves them to
-``jnp``.
+The Householder reduce, the Lanczos reduce, the dense ``eigvalsh`` (in
+float64 for a float32 stack on the card, see :func:`_card_float64`), the
+LU sign solves, the minor-determinant recurrence and the sign recurrence
+are plain PyTorch on every backend, as ``repro`` leaves them to ``jnp``,
+XLA and LAPACK.
 
 Compositions registered here:
 
     eigh                  ``torch.linalg.eigh`` (the oracle / small-n path)
+    eei_dense             dense minor spectra -> full EEI table -> LU signs
+    eei_dense_windowed    as eei_dense, but the components evaluate only the
+                          k selected rows (kernel 2 with I = k), bitwise the
+                          full table's rows
     eei_tridiag           Householder -> Sturm -> minor Sturm -> full EEI
                           table -> recurrence signs + back-transform
     eei_tridiag_windowed  Householder -> k-window Sturm -> minor-determinant
                           components -> recurrence signs + back-transform
+    eei_krylov            Lanczos partial band (m ~ 16k) -> the windowed
+                          chain on the m-band -> back-transform through the
+                          partial basis (topk and eigenvalues only: a
+                          partial basis has no full-table solve)
+    eei_krylov_si         as eei_krylov on (A - sigma I)^{-1} through one
+                          batched LU; a last stage undoes
+                          theta = 1/(lambda - sigma)
 
 ``eigh`` and ``eei_tridiag_windowed`` also carry a ``packed_topk`` chain
 for stacks of segment-packed block-diagonal rows: one ``eigh`` of each row
 and a per-slot selection by in-segment mass, or Householder -> segmented
 Sturm (each segment's k-window) -> minor-determinant components ->
-recurrence signs + back-transform -> per-slot reshape.  Each of them also
-carries the streaming rank-1 ``update`` chain
-(``_UPDATE_CHAIN``): warm-project reduce -> bracketed Sturm ->
-minor-determinant components -> recurrence signs -> update select.
-``eei_dense``, ``eei_krylov`` and ``eei_krylov_si`` wait for ROADMAP queue
-1, item 8.
+recurrence signs + back-transform -> per-slot reshape.  Every composition
+also carries the streaming rank-1 ``update`` chain (``_UPDATE_CHAIN``):
+warm-project reduce -> bracketed Sturm -> minor-determinant components ->
+recurrence signs -> update select.
 """
 
 from __future__ import annotations
@@ -41,7 +53,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import identity, minors
-from repro_torch.core.directions import tridiagonal_signs
+from repro_torch.core.directions import (
+    inverse_iteration_signs,
+    inverse_iteration_signs_batched,
+    tridiagonal_signs,
+)
 from repro_torch.engine.plan import SolverPlan
 from repro_torch.engine.verify import verify_topk, verify_topk_packed
 from repro_torch.engine.registry import (
@@ -54,20 +70,68 @@ from repro_torch.engine.registry import (
 from repro_torch.linalg import householder, sturm
 
 
-def _dense_eigenvalues(a: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.eigvalsh(a)
+def _card_float64(fn):
+    """``fn`` of a float32 stack on the card, computed in float64 and
+    returned in float32.  On the H100 cuSOLVER's float32 ``eigvalsh`` of
+    small matrices is both less accurate and slower than its float64 one
+    (``chip_smoke.py``'s dense phase prints both); far enough off that the
+    inverse-iteration shifts miss, and small components take the wrong
+    sign.  CPU stacks, and float64 ones, run ``fn`` as they are."""
+    def wrapped(a: torch.Tensor) -> torch.Tensor:
+        if a.is_cuda and a.dtype == torch.float32:
+            return fn(a.double()).float()
+        return fn(a)
+
+    return wrapped
 
 
-def _common_stages() -> dict:
-    """Stages every backend shares: the reduce, the minor determinants, the
-    sign recurrence and the dense eigenvalues of the eigh chain."""
+_dense_eigenvalues = _card_float64(torch.linalg.eigvalsh)
+_dense_minor_spectra = _card_float64(identity.minor_spectra)
+
+
+def _dense_signs_reference(a, lam_sel, mag_sel):
+    """Signed dense eigenvectors, one inverse-iteration solve per (matrix,
+    pair): the sign oracle."""
+    return torch.stack([
+        torch.stack([inverse_iteration_signs(a[b], lam_sel[b, i],
+                                             mag_sel[b, i])
+                     for i in range(lam_sel.shape[1])])
+        for b in range(lam_sel.shape[0])])
+
+
+def _make_krylov_stages(plan: SolverPlan) -> dict:
+    """The two Krylov reduce stages, closing over the plan's band size.
+    Every backend shares them: the Lanczos loop is dense matvecs and
+    projections, and its residual check bisects through
+    ``kernels.sturm.ops`` (kernel 1 on a CUDA tensor)."""
+    from repro_torch.linalg import lanczos
+
+    m = plan.krylov_m
+
+    def krylov_reduce(a, k, largest):
+        return lanczos.krylov_reduce(a, int(k), bool(largest), m)
+
+    def krylov_shift_invert_reduce(a, k, largest):
+        return lanczos.krylov_shift_invert_reduce(a, int(k), bool(largest), m)
+
+    return {"krylov_reduce": krylov_reduce,
+            "krylov_shift_invert_reduce": krylov_shift_invert_reduce}
+
+
+def _common_stages(plan: SolverPlan) -> dict:
+    """Stages every backend shares: the reduces, the minor determinants, the
+    sign recurrence, the dense spectra of the eigh and dense chains, and the
+    batched LU signs."""
     return {
         "tridiagonalize": householder.tridiagonalize,
         "dense_eigenvalues": _dense_eigenvalues,
+        "dense_minor_spectra": _dense_minor_spectra,
         "minor_det_components": identity.tridiag_windowed_magnitudes,
         "tridiag_signs": tridiagonal_signs,
+        "dense_signs": inverse_iteration_signs_batched,
         "verify_topk": verify_topk,
         "verify_topk_packed": verify_topk_packed,
+        **_make_krylov_stages(plan),
     }
 
 
@@ -101,15 +165,23 @@ def _make_plain(name: str, reduce: str, plan: SolverPlan) -> StageLibrary:
     def magnitudes(lam, mu):
         return identity.magnitudes_from_spectra(lam, mu, reduce=reduce)
 
-    return StageLibrary(name, {
-        **_common_stages(),
+    def magnitudes_windowed(lam, mu, idx):
+        return identity.magnitudes_from_spectra(lam, mu, reduce=reduce,
+                                                rows=idx)
+
+    stages = {
+        **_common_stages(plan),
         "tridiag_eigenvalues": tridiag_eigenvalues,
         "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
         "tridiag_eigenvalues_bracketed": tridiag_eigenvalues_bracketed,
         "tridiag_eigenvalues_segmented": tridiag_eigenvalues_segmented,
         "tridiag_minor_spectra": tridiag_minor_spectra,
         "magnitudes": magnitudes,
-    })
+        "magnitudes_windowed": magnitudes_windowed,
+    }
+    if name == "reference":
+        stages["dense_signs"] = _dense_signs_reference
+    return StageLibrary(name, stages)
 
 
 def make_reference_backend(plan: SolverPlan) -> StageLibrary:
@@ -147,13 +219,14 @@ def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
         return sturm_ops.sturm_minor_spectra(dm, em, n_iter=iters)
 
     return StageLibrary("cuda", {
-        **_common_stages(),
+        **_common_stages(plan),
         "tridiag_eigenvalues": tridiag_eigenvalues,
         "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
         "tridiag_eigenvalues_bracketed": tridiag_eigenvalues_bracketed,
         "tridiag_eigenvalues_segmented": tridiag_eigenvalues_segmented,
         "tridiag_minor_spectra": tridiag_minor_spectra,
         "magnitudes": pd_ops.eei_magnitudes_batched,
+        "magnitudes_windowed": pd_ops.eei_magnitudes_windowed,
     })
 
 
@@ -170,10 +243,14 @@ _SPEC_DENSE = StageSig("spectrum", "dense_eigenvalues", ("a",), ("lam",))
 _SPEC_TRI = StageSig("spectrum", "tridiag_full", ("d", "e"), ("lam",))
 _SPEC_TRI_WIN = StageSig(
     "spectrum", "tridiag_windowed", ("d", "e"), ("lam_sel",))
+_MINORS_DENSE = StageSig("minor_spectra", "dense_minors", ("a",), ("mu",))
 _MINORS_TRI = StageSig("minor_spectra", "tridiag_minors", ("d", "e"), ("mu",))
 _COMP_FULL = StageSig("components", "eei_full", ("lam", "mu"), ("mags",))
 _COMP_SELECT = StageSig(
     "components", "eei_select", ("lam", "mu", "idx"), ("lam_sel", "mag_sel"))
+_COMP_WIN = StageSig(
+    "components", "eei_windowed", ("lam", "mu", "idx"),
+    ("lam_sel", "mag_sel"))
 _COMP_DET = StageSig(
     "components", "minor_det", ("d", "e", "lam_sel"), ("mag_sel",))
 _REC_TRI = StageSig(
@@ -181,6 +258,27 @@ _REC_TRI = StageSig(
     ("vecs",))
 _REC_TRI_SOLVE = StageSig(
     "recover", "tridiag_solve", ("d", "e", "q", "lam", "mags"), ("mags",))
+_REC_DENSE = StageSig(
+    "recover", "dense_signs", ("a", "lam_sel", "mag_sel"), ("vecs",))
+# The Krylov reduce: a Lanczos band d (b, m), e (b, m-1) and the partial
+# basis q (b, n, m).  Every later tridiagonal stage is band-size agnostic, so
+# the windowed chain runs on the m-band unchanged and the back-transform
+# through q lifts band vectors to the dense basis.
+_REDUCE_KRYLOV = StageSig("reduce", "krylov", ("a",), ("d", "e", "q"))
+_REDUCE_KRYLOV_NOQ = StageSig("reduce", "krylov", ("a",), ("d", "e"))
+# Shift-and-invert: the band lives in theta = 1/(lambda - sigma) space, and
+# the chain ends with a map stage that undoes it.
+_REDUCE_SI = StageSig(
+    "reduce", "krylov_shift_invert", ("a",), ("d", "e", "q", "sigma"))
+_REDUCE_SI_NOQ = StageSig(
+    "reduce", "krylov_shift_invert", ("a",), ("d", "e", "sigma"))
+_SPEC_SI_WIN = StageSig(
+    "spectrum", "tridiag_windowed_si", ("d", "e"), ("lam_sel",))
+_MAP_SI = StageSig(
+    "recover", "shift_invert_map", ("sigma", "lam_sel", "vecs"),
+    ("lam_sel", "vecs"))
+_MAP_SI_EIG = StageSig(
+    "recover", "shift_invert_map", ("sigma", "lam_sel"), ("lam_sel",))
 # The packed chains: a packed row is block-diagonal, so the full-chain
 # stages apply to the packed matrix itself.  The eigh chain selects each
 # slot's window among the row's eigenpairs by in-segment mass; the
@@ -238,6 +336,18 @@ def register_default_compositions() -> None:
         update=_UPDATE_CHAIN,
     ))
     register_composition(Composition(
+        name="eei_dense", method="eei_dense", windowed=False,
+        topk=(_SPEC_DENSE, _MINORS_DENSE, _COMP_SELECT, _REC_DENSE),
+        solve=(_SPEC_DENSE, _MINORS_DENSE, _COMP_FULL),
+        eigenvalues=(_SPEC_DENSE,),
+        update=_UPDATE_CHAIN,
+    ))
+    register_composition(Composition(
+        name="eei_dense_windowed", method="eei_dense", windowed=True,
+        topk=(_SPEC_DENSE, _MINORS_DENSE, _COMP_WIN, _REC_DENSE),
+        update=_UPDATE_CHAIN,
+    ))
+    register_composition(Composition(
         name="eei_tridiag", method="eei_tridiag", windowed=False,
         topk=(_REDUCE, _SPEC_TRI, _MINORS_TRI, _COMP_SELECT, _REC_TRI),
         solve=(_REDUCE, _SPEC_TRI, _MINORS_TRI, _COMP_FULL, _REC_TRI_SOLVE),
@@ -251,6 +361,21 @@ def register_default_compositions() -> None:
         packed_topk=(
             _REDUCE, _SPEC_TRI_SEG, _COMP_DET, _REC_TRI,
             _REC_PACKED_RESHAPE),
+        update=_UPDATE_CHAIN,
+    ))
+    # Krylov: the Lanczos band replaces Householder and the rest is the
+    # windowed chain.  No solve chain: SolverEngine.solve on a Krylov plan
+    # raises the registry's "declares no 'solve' chain" error.
+    register_composition(Composition(
+        name="eei_krylov", method="eei_krylov", windowed=False,
+        topk=(_REDUCE_KRYLOV, _SPEC_TRI_WIN, _COMP_DET, _REC_TRI),
+        eigenvalues=(_REDUCE_KRYLOV_NOQ, _SPEC_TRI_WIN),
+        update=_UPDATE_CHAIN,
+    ))
+    register_composition(Composition(
+        name="eei_krylov_si", method="eei_krylov_si", windowed=False,
+        topk=(_REDUCE_SI, _SPEC_SI_WIN, _COMP_DET, _REC_TRI, _MAP_SI),
+        eigenvalues=(_REDUCE_SI_NOQ, _SPEC_SI_WIN, _MAP_SI_EIG),
         update=_UPDATE_CHAIN,
     ))
 

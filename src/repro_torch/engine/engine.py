@@ -31,13 +31,6 @@ from repro_torch.engine.plan import SolverPlan
 from repro_torch.engine.verify import DEFAULT_TOL
 from repro_torch.linalg import interlace
 
-#: Methods the port does not run yet, with the ROADMAP item that brings them.
-NOT_PORTED = {
-    "eei_dense": "ROADMAP queue 1, item 8",
-    "eei_krylov": "ROADMAP queue 1, item 8",
-    "eei_krylov_si": "ROADMAP queue 1, item 8",
-}
-
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -151,6 +144,52 @@ def _b_tridiag_windowed(lib, spec):
     return fn
 
 
+def _b_krylov(lib, spec):
+    def fn(st):
+        d, e, q = lib.krylov_reduce(st["a"], spec.k or st["a"].shape[-1],
+                                    spec.largest)
+        return {"d": d, "e": e, "q": q}
+
+    return fn
+
+
+def _b_krylov_si(lib, spec):
+    def fn(st):
+        d, e, q, sigma = lib.krylov_shift_invert_reduce(
+            st["a"], spec.k or st["a"].shape[-1], spec.largest)
+        return {"d": d, "e": e, "q": q, "sigma": sigma}
+
+    return fn
+
+
+def _b_tridiag_windowed_si(lib, spec):
+    # The band lives in theta = 1/(lambda - sigma) space, where the
+    # requested extreme of lambda is the opposite extreme of theta (sigma
+    # sits outside the spectrum on the requested side): hence `not largest`.
+    def fn(st):
+        return {"lam_sel": lib.tridiag_eigenvalues_windowed(
+            st["d"], st["e"], spec.k or st["d"].shape[-1], not spec.largest)}
+
+    return fn
+
+
+def _b_shift_invert_map(lib, spec):
+    def fn(st):
+        # theta ascending maps to lambda descending (1/x decreases on a
+        # sign-definite interval): flip to ascending.
+        lam = st["sigma"].unsqueeze(-1) + 1.0 / st["lam_sel"]
+        out = {"lam_sel": torch.flip(lam, dims=(-1,))}
+        if "vecs" in st:
+            out["vecs"] = torch.flip(st["vecs"], dims=(-2,))
+        return out
+
+    return fn
+
+
+def _b_dense_minors(lib, spec):
+    return lambda st: {"mu": lib.dense_minor_spectra(st["a"])}
+
+
 def _b_tridiag_minors(lib, spec):
     return lambda st: {"mu": lib.tridiag_minor_spectra(st["d"], st["e"])}
 
@@ -164,6 +203,15 @@ def _b_eei_select(lib, spec):
         mags = lib.magnitudes(st["lam"], st["mu"])
         idx = st["idx"]
         return {"lam_sel": st["lam"][..., idx], "mag_sel": mags[..., idx, :]}
+
+    return fn
+
+
+def _b_eei_windowed(lib, spec):
+    def fn(st):
+        idx = st["idx"]
+        return {"lam_sel": st["lam"][..., idx],
+                "mag_sel": lib.magnitudes_windowed(st["lam"], st["mu"], idx)}
 
     return fn
 
@@ -191,6 +239,11 @@ def _b_tridiag_solve(lib, spec):
         return {"mags": mags / mags.sum(dim=-1, keepdim=True)}
 
     return fn
+
+
+def _b_dense_signs(lib, spec):
+    return lambda st: {"vecs": _renormalize(lib.dense_signs(
+        st["a"], st["lam_sel"], st["mag_sel"]))}
 
 
 def _b_verify_topk(lib, spec):
@@ -385,18 +438,25 @@ def _b_verify_topk_packed(lib, spec):
 
 _STAGE_BUILDERS = {
     ("reduce", "householder"): _b_householder,
+    ("reduce", "krylov"): _b_krylov,
+    ("reduce", "krylov_shift_invert"): _b_krylov_si,
     ("spectrum", "eigh"): _b_eigh,
     ("spectrum", "dense_eigenvalues"): _b_dense_eigenvalues,
     ("spectrum", "tridiag_full"): _b_tridiag_full,
     ("spectrum", "tridiag_windowed"): _b_tridiag_windowed,
+    ("spectrum", "tridiag_windowed_si"): _b_tridiag_windowed_si,
+    ("minor_spectra", "dense_minors"): _b_dense_minors,
     ("minor_spectra", "tridiag_minors"): _b_tridiag_minors,
     ("components", "eei_full"): _b_eei_full,
     ("components", "eei_select"): _b_eei_select,
+    ("components", "eei_windowed"): _b_eei_windowed,
     ("components", "minor_det"): _b_minor_det,
     ("recover", "eigh_topk"): _b_eigh_topk,
     ("recover", "eigh_solve"): _b_eigh_solve,
     ("recover", "tridiag_signs"): _b_tridiag_signs,
     ("recover", "tridiag_solve"): _b_tridiag_solve,
+    ("recover", "dense_signs"): _b_dense_signs,
+    ("recover", "shift_invert_map"): _b_shift_invert_map,
     ("reduce", "warm_project"): _b_warm_project,
     ("spectrum", "tridiag_bracketed"): _b_tridiag_bracketed,
     ("recover", "update_select"): _b_update_select,
@@ -608,10 +668,6 @@ class SolverEngine:
     device: Optional[torch.device] = None
 
     def __post_init__(self):
-        if self.plan.method in NOT_PORTED:
-            raise NotImplementedError(
-                f"method {self.plan.method!r} is not ported yet "
-                f"({NOT_PORTED[self.plan.method]})")
         object.__setattr__(self, "device", _resolve_device(self.device))
 
     def solve(self, a) -> SolveResult:

@@ -11,13 +11,15 @@ The twin of ``repro.engine.plan`` with the port's backend names:
     precision     None (keep the input dtype) | "float32" | "float64"
     bisect_iters  Sturm bisection iterations (0 -> dtype default)
     max_batch     microbatch bound for long stacks (0 -> no bound)
+    krylov_m      Krylov band size (0 -> ``lanczos.default_m(n, k)``)
 
 :func:`plan_for` picks a plan from the problem shape and
-:func:`packed_plan_for` one for a stack of segment-packed rows, on the
-static crossover constants below; the port has no calibration table yet, and
-``repro``'s table was measured on a CPU, so it is not read.  A plan may name
-a method the port does not run yet: ``SolverEngine`` then says which
-ROADMAP item brings it.
+:func:`packed_plan_for` one for a stack of segment-packed rows.  Their
+crossovers come from the calibration table (``engine.autotune``: one
+measured on the card by the port's own sweep; ``repro``'s table was
+measured on a CPU and is never read); the static constants below apply
+where no table resolves, as in every CPU process, since the committed
+default was measured on the card.
 """
 
 from __future__ import annotations
@@ -56,18 +58,47 @@ PACK_N_MAX = 32
 PACKED_EIGH_N_MAX = 128
 
 
-# With no calibration table yet (ROADMAP queue 1, item 10), the resolved
-# crossovers are the static constants; the H100's own values are for that
-# item to measure.
+def _measured(field: str, fallback):
+    """The calibration table's ``field``, or ``fallback`` where no table
+    resolves or the table lacks the field."""
+    from repro_torch.engine import autotune
+
+    table = autotune.get_table()
+    value = None if table is None else getattr(table, field)
+    return fallback if value is None else value
+
+
+def resolved_crossovers(backend: Optional[str] = None) -> tuple:
+    """``(eigh_crossover_n, dense_crossover_n)`` the planner dispatches on:
+    the calibration table's pair for ``backend`` (``cuda`` has its own), or
+    :data:`EIGH_CROSSOVER_N`, :data:`DENSE_CROSSOVER_N` with no table."""
+    from repro_torch.engine import autotune
+
+    table = autotune.get_table()
+    if table is None:
+        return EIGH_CROSSOVER_N, DENSE_CROSSOVER_N
+    return table.crossovers_for(backend)
+
+
+def resolved_windowed_k_frac() -> float:
+    """The measured ``k / n`` at or below which the windowed chain wins."""
+    return _measured("windowed_k_frac", WINDOWED_K_FRAC)
+
+
+def resolved_krylov_n_min() -> int:
+    """The measured ``n`` at which the Krylov reduce starts winning."""
+    return _measured("krylov_n_min", KRYLOV_N_MIN)
+
+
 def resolved_pack_n_max() -> int:
-    """The largest request ``n`` worth packing (static: :data:`PACK_N_MAX`)."""
-    return PACK_N_MAX
+    """The largest request ``n`` worth packing."""
+    return _measured("pack_n_max", PACK_N_MAX)
 
 
 def resolved_packed_eigh_n_max() -> int:
-    """The packed row width at or below which eigh takes the packed chain
-    (static: :data:`PACKED_EIGH_N_MAX`)."""
-    return PACKED_EIGH_N_MAX
+    """The packed row width at or below which eigh takes the packed
+    chain."""
+    return _measured("packed_eigh_n_max", PACKED_EIGH_N_MAX)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +111,7 @@ class SolverPlan:
     precision: Optional[str] = None  # None -> keep input dtype
     bisect_iters: int = 0  # 0 -> dtype default
     max_batch: int = 0  # 0 -> solve the whole stack at once
+    krylov_m: int = 0  # Krylov band size; 0 -> lanczos.default_m(n, k)
 
     def __post_init__(self):
         if self.method not in METHODS:
@@ -107,14 +139,17 @@ def plan_for(
     ``k`` is the number of eigenpairs the caller will ask for (``None``: the
     full table).  Explicit keywords override the heuristics:
 
-    * ``n <= EIGH_CROSSOVER_N``, or ``k >= n``: ``eigh``;
-    * ``n <= DENSE_CROSSOVER_N``: dense minors (``eei_dense``);
+    * ``n`` at or below the eigh crossover, or ``k >= n``: ``eigh``;
+    * ``n`` at or below the dense crossover: dense minors (``eei_dense``);
     * otherwise the tridiagonal path (``eei_tridiag``), or the Krylov reduce
-      for a narrow window (``k <= n / 16``) on a large matrix
-      (``n >= KRYLOV_N_MIN``);
-    * a window with ``k <= WINDOWED_K_FRAC * n`` plans the windowed chain.
+      for a narrow window (``k <= n / 16``) on a large matrix (``n`` at or
+      above :func:`resolved_krylov_n_min`); shift-and-invert is never
+      picked, only named;
+    * a window with ``k <= resolved_windowed_k_frac() * n`` plans the
+      windowed chain.
 
-    The backend defaults to ``cuda``, the hand-written kernels.
+    The crossovers are the backend's (:func:`resolved_crossovers`); the
+    backend defaults to ``cuda``, the hand-written kernels.
     """
     if len(shape) not in (2, 3):
         raise ValueError(f"expected (n, n) or (b, n, n), got {shape}")
@@ -122,19 +157,21 @@ def plan_for(
     if backend is None:
         backend = "cuda"
     if method is None:
-        if n <= EIGH_CROSSOVER_N or (k is not None and k >= n):
+        eigh_x, dense_x = resolved_crossovers(backend)
+        if n <= eigh_x or (k is not None and k >= n):
             method = "eigh"
-        elif n <= DENSE_CROSSOVER_N:
+        elif n <= dense_x:
             method = "eei_dense"
         else:
             method = "eei_tridiag"
         if (method == "eei_tridiag" and k is not None and 0 < k < n
-                and k <= KRYLOV_K_FRAC * n and n >= KRYLOV_N_MIN):
+                and k <= KRYLOV_K_FRAC * n
+                and n >= resolved_krylov_n_min()):
             method = "eei_krylov"
     if spectrum is None:
         spectrum = "full"
         if (method != "eigh" and k is not None and 0 < k < n
-                and k <= WINDOWED_K_FRAC * n):
+                and k <= resolved_windowed_k_frac() * n):
             spectrum = "windowed"
     return SolverPlan(method=method, backend=backend, spectrum=spectrum,
                       precision=precision, bisect_iters=bisect_iters)

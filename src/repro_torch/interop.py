@@ -24,9 +24,6 @@ def plan_from_reference(fields: dict) -> SolverPlan:
     if backend == "sharded" or fields.pop("mesh", None) is not None:
         raise NotImplementedError(
             "the sharded backend is not ported yet (ROADMAP queue 1, item 13)")
-    if fields.pop("krylov_m", 0):
-        raise NotImplementedError(
-            "eei_krylov is not ported yet (ROADMAP queue 1, item 8)")
     # Mesh axis names mean nothing without a mesh.
     fields.pop("batch_axis", None)
     fields.pop("minor_axis", None)

@@ -1,0 +1,367 @@
+"""Lanczos partial tridiagonalization: the Krylov ``reduce`` stage.
+
+The twin of ``repro.linalg.lanczos``.  ``m`` Lanczos steps build an
+orthonormal basis ``Q (n, m)`` and a tridiagonal band ``T = Q^T A Q`` whose
+extremal Ritz pairs converge to ``A``'s long before ``m`` reaches ``n``; the
+band ``(d, e, q)`` feeds the windowed Sturm, minor-determinant and sign
+stages unchanged.  As in ``repro``:
+
+* full reorthogonalization (CGS2) against every retained basis vector;
+* a windowed Ritz-residual stop every ``check_every`` steps: the ``k``
+  windowed Ritz values of the guard-masked band are bisected (through
+  ``kernels.sturm.ops.sturm_eigenvalues(..., window=)``: kernel 1 on a CUDA
+  tensor, its plain version, bitwise the same, on a CPU one) and the bound
+  ``beta_j |s_j[last]|`` is held to ``rtol`` of the band's scale;
+* a breakdown (``beta_j ~ 0``) restarts in a fresh direction orthogonal to
+  the basis, through an exactly-zero band junction;
+* unused band slots are filled with a guard value outside the active
+  band's spectrum, on the side away from the requested extreme.
+
+Two things differ from ``repro``.  The random start and restart directions
+come from ``torch.Generator``s seeded from ``seed`` (drawn on the CPU in
+float64, so the CPU and the card draw the same vectors); ``repro`` draws
+them with ``jax.random``, which the port cannot reproduce, so ``v0=`` takes
+an explicit start vector.  And a stack runs as one loop: every active
+matrix takes step ``j`` together; at a residual check the matrices that
+converged leave the working set with their state frozen (their own
+``steps``), as each matrix of ``repro``'s ``vmap``-ped ``while_loop`` stops
+at its own step.
+
+Shift-and-invert runs the same iteration on ``B = (A - sigma I)^{-1}``
+through one ``lu_factor_ex`` (no error check, so an exactly singular shift
+is not refused; no host sync) and ``lu_solve`` a step.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import identity
+
+#: Krylov band sizing for a k-window: ``m = min(n, max(FACTOR * k, MIN))``
+#: (``repro``'s constants; ``SolverPlan.krylov_m`` overrides).
+KRYLOV_M_FACTOR = 16
+KRYLOV_M_MIN = 128
+
+#: Shift-and-invert band sizing: the inverted operator separates the target
+#: cluster, so fewer steps are needed per converged pair.
+KRYLOV_SI_M_FACTOR = 8
+KRYLOV_SI_M_MIN = 64
+
+#: Shift margin for shift-and-invert, as a fraction of the Gershgorin span.
+SI_MARGIN_FRAC = 1e-3
+
+
+def default_m(n: int, k: int) -> int:
+    """Default Krylov band size for a direct top-k window at size ``n``."""
+    return min(n, max(KRYLOV_M_FACTOR * k, KRYLOV_M_MIN))
+
+
+def default_si_m(n: int, k: int) -> int:
+    """Default band size for the shift-and-invert mode."""
+    return min(n, max(KRYLOV_SI_M_FACTOR * k, KRYLOV_SI_M_MIN))
+
+
+def _resolve_m(n: int, k: int, m: int, si: bool = False) -> int:
+    if m:
+        return min(n, max(int(m), k))
+    return default_si_m(n, k) if si else default_m(n, k)
+
+
+def _default_rtol(dtype: torch.dtype) -> float:
+    return 1e-12 if dtype == torch.float64 else 1e-5
+
+
+class LanczosResult(NamedTuple):
+    """One partial tridiagonalization per matrix, guard-masked."""
+
+    d: torch.Tensor  # (..., m) band diagonal; guard value beyond `steps`
+    e: torch.Tensor  # (..., m-1) off-diagonal; 0 beyond the active block
+    q: torch.Tensor  # (..., n, m) basis columns; 0 beyond `steps`
+    steps: torch.Tensor  # (...) int32: Lanczos steps taken
+    resid: torch.Tensor  # (..., k) last windowed Ritz residual bound
+
+
+def _floor(dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.tensor(torch.finfo(dtype).tiny, dtype=dtype,
+                        device=device) ** 0.5
+
+
+def _band_bounds(d: torch.Tensor, e_band: torch.Tensor, active: torch.Tensor):
+    """Gershgorin ``(lo, hi)`` of the active rows of masked bands
+    ``d (..., m)``, ``e_band (..., m-1)``; ``active`` broadcasts to ``d``."""
+    m = d.shape[-1]
+    rad = torch.zeros_like(d)
+    if m > 1:
+        rad[..., :-1] += e_band.abs()
+        rad[..., 1:] += e_band.abs()
+    lo = torch.where(active, d - rad, torch.inf).amin(dim=-1)
+    hi = torch.where(active, d + rad, -torch.inf).amax(dim=-1)
+    return lo, hi
+
+
+def _guard_value(d, e_band, active, largest: bool):
+    """Guard for inactive band slots: outside the active block's spectrum,
+    on the side away from the requested extreme."""
+    lo, hi = _band_bounds(d, e_band, active)
+    margin = (0.01 * (hi - lo) + 1e-3 * (hi.abs() + lo.abs())
+              + _floor(d.dtype, d.device))
+    return lo - margin if largest else hi + margin
+
+
+def _mask_band(d: torch.Tensor, e: torch.Tensor, j, m: int, largest: bool):
+    """Guard-fill band entries beyond ``j`` active steps (an int, or one per
+    matrix ``(...)``): the ``(..., m)`` diagonal and ``(..., m-1)``
+    off-diagonal the spectrum stage sees."""
+    idx = torch.arange(m, device=d.device)
+    if isinstance(j, torch.Tensor):
+        j = j.unsqueeze(-1)
+    e_band = (torch.where(idx[:m - 1] < j - 1, e[..., :m - 1], 0.0)
+              if m > 1 else e[..., :0])
+    active = idx < j
+    guard = _guard_value(d, e_band, active, largest)
+    return torch.where(active, d, guard.unsqueeze(-1)), e_band
+
+
+def _gaussian(n: int, seed: int, dtype, device) -> torch.Tensor:
+    """A seeded standard normal ``(n,)``, drawn on the CPU in float64."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn(n, generator=gen, dtype=torch.float64).to(
+        dtype=dtype, device=device)
+
+
+def _restart_seed(seed: int, j: int) -> int:
+    """Seed of the restart direction of step ``j`` (the start vector takes
+    ``seed`` itself)."""
+    return (int(seed) + 1) * 1_000_003 + j + 1
+
+
+#: A batched operator ``(operands, apply)``: ``apply(operands, v)`` maps
+#: ``v (b, n)`` to ``(b, n)``; every operand has the stack on its leading
+#: axis, so the operator of a sub-stack is ``apply`` on ``t[rows]``.
+Operator = Tuple[Tuple[torch.Tensor, ...], Callable]
+
+
+def _dense_apply(operands, v):
+    return (operands[0] @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _ritz_resid(d, e, j1: int, beta, window, floor):
+    """Relative Ritz residual bound ``beta_j |s_i[j-1]| / scale`` of the k
+    windowed pairs of the current masked bands, ``(b, k)``."""
+    from repro_torch.kernels.sturm import ops as sturm_ops
+
+    k, largest = window
+    m = d.shape[-1]
+    d_m, e_m = _mask_band(d, e, j1, m, largest)
+    theta = sturm_ops.sturm_eigenvalues(d_m, e_m, window=(k, largest))
+    mags = identity.tridiag_windowed_magnitudes(d_m, e_m, theta)
+    s_last = torch.sqrt(torch.clamp(mags[..., j1 - 1], min=0.0))
+    lo, hi = _band_bounds(d_m, e_m, torch.arange(m, device=d.device) < j1)
+    scale = torch.maximum(torch.maximum(lo.abs(), hi.abs()), floor)
+    return beta.unsqueeze(-1) * s_last / scale.unsqueeze(-1)
+
+
+def lanczos_iterate(
+    a: Optional[torch.Tensor],
+    m: int,
+    *,
+    window: Optional[Tuple[int, bool]] = None,
+    operator: Optional[Operator] = None,
+    rtol: float = 0.0,
+    check_every: int = 32,
+    seed: int = 0,
+    v0: Optional[torch.Tensor] = None,
+):
+    """The raw m-step Lanczos loop on a stack ``a (b, n, n)`` (or one
+    matrix ``(n, n)``), or on an ``operator`` of a stack.
+
+    Returns ``(d (.., m), e (.., m), Q (.., m+1, n) rows, steps (..),
+    resid (.., k))``, the unmasked internals (:func:`lanczos_partial` is the
+    masked form).  ``window=(k, largest)`` turns on the windowed Ritz
+    residual stop.  ``v0`` (``(n,)`` or ``(b, n)``, normalized here) is the
+    start vector; by default a normal vector seeded from ``seed``.
+    """
+    if operator is None:
+        squeeze = a.ndim == 2
+        stack = a.unsqueeze(0) if squeeze else a
+        operator = ((stack,), _dense_apply)
+    else:
+        squeeze = False
+    operands, apply = operator
+    b_n, n = operands[0].shape[0], operands[0].shape[-1]
+    ref = operands[0]
+    dtype, device = ref.dtype, ref.device
+    if not 1 <= m <= n:
+        raise ValueError(f"Krylov band m={m} out of range for n={n}")
+    if window is not None and not 1 <= window[0] <= m:
+        raise ValueError(f"window k={window[0]} out of range for m={m}")
+    rtol = float(rtol) if rtol else _default_rtol(dtype)
+    eps = torch.finfo(dtype).eps
+    floor = _floor(dtype, device)
+    k_win = window[0] if window is not None else 1
+
+    if v0 is None:
+        v0 = _gaussian(n, seed, dtype, device)
+    v0 = torch.as_tensor(v0, dtype=dtype, device=device)
+    v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+
+    # The outputs of the whole stack; the working set holds the matrices
+    # still iterating, whose original rows are `rows`.
+    out_q = torch.zeros((b_n, m + 1, n), dtype=dtype, device=device)
+    out_d = torch.zeros((b_n, m), dtype=dtype, device=device)
+    out_e = torch.zeros((b_n, m), dtype=dtype, device=device)
+    out_steps = torch.zeros((b_n,), dtype=torch.int32, device=device)
+    out_resid = torch.full((b_n, k_win), torch.inf, dtype=dtype,
+                           device=device)
+    q = out_q.clone()
+    q[:, 0] = v0
+    d, e, resid = out_d.clone(), out_e.clone(), out_resid.clone()
+    rows = torch.arange(b_n, device=device)
+
+    def retire(keep, j1):
+        """Write the matrices leaving the working set (``~keep``) to the
+        outputs; return the working set without them."""
+        nonlocal q, d, e, resid, rows, operands
+        gone = rows[~keep]
+        out_q[gone], out_d[gone], out_e[gone] = q[~keep], d[~keep], e[~keep]
+        out_resid[gone] = resid[~keep]
+        out_steps[gone] = j1
+        q, d, e, resid, rows = q[keep], d[keep], e[keep], resid[keep], \
+            rows[keep]
+        operands = tuple(t[keep] for t in operands)
+
+    def project_out(x):
+        # Rows of q beyond the basis are exactly zero: no mask needed.
+        c = q @ x.unsqueeze(-1)
+        return x - (q.transpose(-1, -2) @ c).squeeze(-1)
+
+    j1 = 0
+    for j in range(m):
+        qj = q[:, j]
+        w = apply(operands, qj)
+        alpha = (qj * w).sum(dim=-1)
+        w = w - alpha.unsqueeze(-1) * qj
+        w = project_out(project_out(w))  # CGS2
+        beta = torch.linalg.vector_norm(w, dim=-1)
+        d[:, j] = alpha
+        scale = torch.maximum(d.abs().amax(dim=-1), e.abs().amax(dim=-1))
+        breakdown = beta <= torch.maximum(100.0 * eps * scale, floor)
+        qn = w / torch.maximum(beta, floor).unsqueeze(-1)
+        if bool(breakdown.any()):
+            # An invariant subspace was captured: go on in a fresh direction
+            # orthogonal to the basis, through a zero band junction.
+            r = _gaussian(n, _restart_seed(seed, j), dtype, device)
+            r = project_out(r.expand(qn.shape))
+            rn = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
+            r = torch.where(rn > floor, r / torch.maximum(rn, floor), 0.0)
+            qn = torch.where(breakdown.unsqueeze(-1), r, qn)
+        e[:, j] = torch.where(breakdown, 0.0, beta)
+        q[:, j + 1] = qn
+        j1 = j + 1
+        if window is not None and j1 % check_every == 0 and j1 >= k_win + 1:
+            resid = _ritz_resid(d, e, j1, beta, window, floor)
+            done = (resid <= rtol).all(dim=-1)
+            if bool(done.any()):
+                retire(~done, j1)
+                if rows.numel() == 0:
+                    break
+    if rows.numel():
+        retire(torch.zeros_like(rows, dtype=torch.bool), j1)
+    out = (out_d, out_e, out_q, out_steps, out_resid)
+    return tuple(x[0] for x in out) if squeeze else out
+
+
+def lanczos_partial(
+    a: Optional[torch.Tensor],
+    m: int,
+    k: int,
+    largest: bool = True,
+    *,
+    operator: Optional[Operator] = None,
+    rtol: float = 0.0,
+    check_every: int = 32,
+    seed: int = 0,
+    v0: Optional[torch.Tensor] = None,
+) -> LanczosResult:
+    """Guard-masked m-step Lanczos band and basis for a ``(k, largest)``
+    window, per matrix of ``a (b, n, n)`` or ``(n, n)``.
+
+    ``d (.., m)`` / ``e (.., m-1)`` carry the active block with inactive
+    slots guard-filled away from the window; ``q (.., n, m)`` columns are
+    the basis (zero beyond ``steps``).
+    """
+    d, e, qr, steps, resid = lanczos_iterate(
+        a, m, window=(k, largest), operator=operator, rtol=rtol,
+        check_every=check_every, seed=seed, v0=v0)
+    d_m, e_m = _mask_band(d, e, steps, m, largest)
+    # Row `steps` of Q was written by the last step but lies outside the
+    # retained basis: zero everything beyond the active block.
+    keep = torch.arange(m, device=d.device).unsqueeze(-1) < \
+        steps[..., None, None]
+    q = torch.where(keep, qr[..., :m, :], 0.0)
+    return LanczosResult(d_m, e_m, q.transpose(-1, -2), steps, resid)
+
+
+# ---------------------------------------------------------------------------
+# Engine stage entry points (batched over the leading axis)
+# ---------------------------------------------------------------------------
+
+
+def krylov_reduce(a: torch.Tensor, k: int, largest: bool = True, m: int = 0,
+                  rtol: float = 0.0):
+    """Krylov reduce stage: ``(d, e, q)`` for a top-k window of each matrix
+    of ``a (b, n, n)`` (or of one ``(n, n)``)."""
+    n = a.shape[-1]
+    mm = _resolve_m(n, k, m)
+    res = lanczos_partial(a, mm, min(k, mm), largest, rtol=rtol)
+    return res.d, res.e, res.q
+
+
+# Batch axes are written out, so the batched name is the same function.
+krylov_reduce_batched = krylov_reduce
+
+
+def shift_invert_sigma(a: torch.Tensor, largest: bool = True) -> torch.Tensor:
+    """Gershgorin shift strictly outside each spectrum on the target side,
+    ``(...)``."""
+    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    radius = a.abs().sum(dim=-1) - diag.abs()
+    lo = (diag - radius).amin(dim=-1)
+    hi = (diag + radius).amax(dim=-1)
+    margin = (SI_MARGIN_FRAC * (hi - lo) + 1e-6 * (hi.abs() + lo.abs())
+              + _floor(a.dtype, a.device))
+    return hi + margin if largest else lo - margin
+
+
+def _lu_apply(operands, v):
+    lu, piv = operands
+    return torch.linalg.lu_solve(lu, piv, v.unsqueeze(-1)).squeeze(-1)
+
+
+def krylov_shift_invert_reduce(a: torch.Tensor, k: int, largest: bool = True,
+                               m: int = 0, rtol: float = 0.0):
+    """Shift-and-invert Krylov reduce: ``(d, e, q, sigma)`` in theta space.
+
+    Lanczos runs on ``B = (A - sigma I)^{-1}`` through one LU factorization
+    per matrix; the band's Ritz values are ``theta = 1/(lambda - sigma)``,
+    and the opposite extreme of theta is the requested extreme of lambda
+    (the ``shift_invert_map`` stage undoes both).
+    """
+    squeeze = a.ndim == 2
+    stack = a.unsqueeze(0) if squeeze else a
+    n = stack.shape[-1]
+    mm = _resolve_m(n, k, m, si=True)
+    sigma = shift_invert_sigma(stack, largest)
+    eye = torch.eye(n, dtype=stack.dtype, device=stack.device)
+    lu, piv, _ = torch.linalg.lu_factor_ex(
+        stack - sigma[:, None, None] * eye)
+    res = lanczos_partial(None, mm, min(k, mm), not largest,
+                          operator=((lu, piv), _lu_apply), rtol=rtol)
+    out = (res.d, res.e, res.q, sigma)
+    return tuple(x[0] for x in out) if squeeze else out
+
+
+krylov_shift_invert_reduce_batched = krylov_shift_invert_reduce

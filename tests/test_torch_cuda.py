@@ -503,11 +503,14 @@ def test_packed_program_on_card(cuda_device, row_n, dtype):
     in-segment mass of some float32 slots of the tridiagonal chain, which
     repro misses on the same slots (tests/test_torch_packed.py); the
     windowed chain launches kernel 3 once, bitwise its plain version."""
-    from repro_torch import packed_plan_for, packed_topk_program
+    from repro_torch import packed_topk_program
 
     rng = np.random.default_rng(row_n)
     a, rows, off, length = _uniform_layout(rng, 4, row_n, 32)
-    prog = packed_topk_program(packed_plan_for(row_n), 8, True, verify=True)
+    # Each chain named, whatever the card's calibration table picks.
+    plan = (SolverPlan(method="eigh") if row_n <= 128 else
+            SolverPlan(method="eei_tridiag", spectrum="windowed"))
+    prog = packed_topk_program(plan, 8, True, verify=True)
     seg_calls = []
     seg = st_ops.sturm_segmented
 
@@ -536,3 +539,162 @@ def test_packed_program_on_card(cuda_device, row_n, dtype):
     assert launched == (0 if row_n <= 128 else 1)
     for d, e, kw, out in seg_calls:
         assert torch.equal(out, st_kernel.sturm_segmented_plain(d, e, **kw))
+
+
+# -- the dense and Krylov compositions ----------------------------------------
+
+
+def _sym(rng, b, n, dtype, device):
+    a = rng.standard_normal((b, n, n))
+    return torch.as_tensor((a + np.swapaxes(a, 1, 2)) / 2, dtype=dtype,
+                           device=device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prod_diff_kernel_at_the_dense_shapes(cuda_device, dtype):
+    """Kernel 2 at the shapes ``eei_dense`` gives it, (64, 64, 64, 63), and
+    ``eei_dense_windowed`` with I = k, (64, 8, 64, 63): within tolerance of
+    its plain version, the windowed rows bitwise the full table's; and the
+    engine's windowed top-k launches it once, with I = k."""
+    from repro_torch.core import identity
+
+    a = _sym(np.random.default_rng(64), 64, 64, dtype, cuda_device)
+    lam = torch.linalg.eigvalsh(a)
+    mu = identity.minor_spectra(a)
+    floor = pd_ops._floor_from_spectra(lam).contiguous()
+    full = pd_kernel.logabs_sum(lam, mu, floor)
+    _close(full, pd_kernel.logabs_sum_plain(lam, mu, floor),
+           TOL[dtype]["prod_diff"])
+    idx = torch.arange(56, 64, device=cuda_device)
+    rows = pd_kernel.logabs_sum(lam[:, idx].contiguous(), mu, floor)
+    assert rows.shape == (64, 8, 64)
+    assert torch.equal(rows, full[:, idx])
+    assert torch.equal(pd_ops.eei_magnitudes_windowed(lam, mu, idx),
+                       pd_ops.eei_magnitudes_batched(lam, mu)[:, idx])
+    shapes = []
+    launch = pd_ops.logabs_sum_batched
+
+    def capturing(lam_, mu_, floor_, **kw):
+        shapes.append(tuple(lam_.shape) + tuple(mu_.shape[1:]))
+        return launch(lam_, mu_, floor_, **kw)
+
+    pd_ops.logabs_sum_batched = capturing
+    try:
+        before = pd_kernel.logabs_sum.launches
+        eng = SolverEngine(SolverPlan(method="eei_dense", spectrum="windowed"))
+        top = eng.topk(a, 8)
+        eng.eigenvalues(a, k=8)
+        assert pd_kernel.logabs_sum.launches == before + 1
+    finally:
+        pd_ops.logabs_sum_batched = launch
+    assert shapes == [(64, 8, 64, 63)]
+    ref = torch.linalg.eigvalsh(a.double())[:, -8:]
+    _close(top.eigenvalues.double(), ref,
+           1e-8 if dtype == torch.float64 else 1e-3)
+
+
+def _capture_sturm_bisect():
+    """Wrap ``kernels.sturm.ops``'s name for kernel 1's wrapper; returns the
+    list the launches' operands and results go to, and the undo."""
+    calls = []
+    launch = st_ops.sturm_bisect
+
+    def capturing(d, e, bounds, **kw):
+        out = launch(d, e, bounds, **kw)
+        calls.append((d, e, bounds, kw, out))
+        return out
+
+    st_ops.sturm_bisect = capturing
+
+    def undo():
+        st_ops.sturm_bisect = launch
+
+    return calls, undo
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sturm_window_on_a_guard_filled_krylov_band(cuda_device, dtype):
+    """Kernel 1's window on a Lanczos band with exactly-zero junctions (a
+    rank-4 matrix breaks down and restarts) and guard-filled slots (it
+    converges before m): bitwise its plain version, and the window holds
+    the matrix's top eigenvalues, never a guard."""
+    from repro_torch.linalg import lanczos
+
+    rng = np.random.default_rng(3)
+    low = rng.standard_normal((2, 48, 4))
+    a = torch.as_tensor(low @ np.swapaxes(low, 1, 2), dtype=dtype,
+                        device=cuda_device)
+    res = lanczos.lanczos_partial(a, 40, 2, check_every=8,
+                                  rtol=1e-4 if dtype == torch.float32
+                                  else 1e-8)
+    steps = res.steps.cpu()
+    e_active = [res.e[b, :int(s) - 1] for b, s in enumerate(steps)]
+    assert any(bool((x == 0).any()) for x in e_active)  # zero junctions
+    assert bool((steps < 40).all())  # guard-filled tails
+    calls, undo = _capture_sturm_bisect()
+    try:
+        win = st_ops.sturm_eigenvalues(res.d, res.e, window=(2, True))
+    finally:
+        undo()
+    ((d, e, bounds, kw, out),) = calls
+    assert torch.equal(out, st_kernel.sturm_bisect_plain(d, e, bounds, **kw))
+    ref = torch.linalg.eigvalsh(a.double())[:, -2:]
+    _close(win.double(), ref, 1e-9 if dtype == torch.float64 else 1e-3)
+
+
+@pytest.mark.parametrize("method", ["eei_krylov", "eei_krylov_si"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sturm_inside_the_lanczos_residual_check(cuda_device, dtype, method):
+    """Every kernel-1 launch of a Krylov top-k (the residual checks and the
+    window on the band) is bitwise its plain version, and the card's result
+    matches the CPU's (the same stopping decisions, so the same steps)."""
+    from repro_torch.linalg import lanczos
+
+    a = _sym(np.random.default_rng(11), 2, 200, dtype, cuda_device)
+    plan = SolverPlan(method=method)
+    calls, undo = _capture_sturm_bisect()
+    steps = []
+    partial = lanczos.lanczos_partial
+
+    def counting(*args, **kw):
+        res = partial(*args, **kw)
+        steps.append(res.steps.cpu())
+        return res
+
+    lanczos.lanczos_partial = counting
+    try:
+        before = st_kernel.sturm_bisect.launches
+        top = SolverEngine(plan).topk(a, 4)
+        launched = st_kernel.sturm_bisect.launches - before
+        cpu = SolverEngine(plan, device="cpu").topk(a.cpu(), 4)
+    finally:
+        undo()
+        lanczos.lanczos_partial = partial
+    card = [c for c in calls if c[0].is_cuda]
+    assert launched == len(card) >= 2  # >= 1 check, and the window
+    for d, e, bounds, kw, out in card:
+        assert torch.equal(out, st_kernel.sturm_bisect_plain(d, e, bounds,
+                                                             **kw))
+    assert torch.equal(steps[0], steps[1])
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    _close(top.eigenvalues.cpu(), cpu.eigenvalues, tol)
+    dots = (top.vectors.cpu().double() * cpu.vectors.double()).sum(-1).abs()
+    assert float(dots.min()) >= 1 - (1e-8 if dtype == torch.float64
+                                     else 1e-3)
+
+
+def test_dense_float32_topk_passes_verify_on_card(cuda_device):
+    """cuSOLVER's float32 ``eigvalsh`` on the card is far enough off that
+    inverse iteration's shifts miss and small components flip sign (the
+    float32 windowed top-k of this stack read a residual of 1.06e-2 of
+    ||A||_F); the cuda backend takes a float32 stack's dense spectra in
+    float64, and every pair passes the verify stage."""
+    from repro_torch.engine.engine import topk_program
+
+    a = torch.as_tensor(_sym(np.random.default_rng(8), 64, 64, torch.float64,
+                             "cpu"), dtype=torch.float32, device=cuda_device)
+    for spectrum in ("windowed", "full"):
+        plan = SolverPlan(method="eei_dense", spectrum=spectrum)
+        res, flags = topk_program(plan, 8, True, verify=True)(a)
+        assert bool(flags.ok.all()), flags
+        assert res.eigenvalues.dtype == torch.float32

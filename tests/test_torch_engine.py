@@ -3,8 +3,8 @@
 The port runs on the CPU here (``device="cpu"``), where the kernel
 wrappers take their plain versions; ``repro`` runs its pallas backend in
 interpret mode.  Both get the same plan (``interop.plan_from_reference``)
-and the same seeded stack.  Also: the planner, the registry, microbatching
-and the errors for what is not ported.
+and the same seeded stack.  Also: the planner, the registry, microbatching,
+and that every method builds and runs.
 """
 
 import dataclasses
@@ -28,6 +28,7 @@ from test_torch_parity import (  # noqa: E402
 import repro.engine as r_engine  # noqa: E402
 from repro.engine import autotune as r_autotune  # noqa: E402
 from repro_torch import SolverEngine, SolverPlan, plan_for  # noqa: E402
+from repro_torch.engine import autotune  # noqa: E402
 from repro_torch.engine import registry  # noqa: E402
 from repro_torch.interop import plan_from_reference, stack_from_numpy  # noqa: E402
 
@@ -144,9 +145,17 @@ def test_precision_casts_the_input():
 
 
 @pytest.mark.parametrize("method", ["eei_dense", "eei_krylov", "eei_krylov_si"])
-def test_unported_methods_name_their_roadmap_item(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        SolverEngine(SolverPlan(method=method), device="cpu")
+def test_every_method_builds_and_runs(method):
+    """The methods ROADMAP item 8 brought build through the normal entry
+    point and run a small stack (each one's parity with repro is in
+    test_torch_dense.py and test_torch_lanczos.py)."""
+    a = sym_stack(7, 2, 20)
+    lam = np.linalg.eigvalsh(a)
+    eng = SolverEngine(SolverPlan(method=method), device="cpu")
+    top = eng.topk(a, 2)
+    assert_close(top.eigenvalues, lam[:, -2:], "eigenvalues", "float64")
+    assert_close(eng.eigenvalues(a, k=2), lam[:, -2:], "eigenvalues",
+                 "float64")
 
 
 def test_eigh_composition_is_the_oracle():
@@ -168,8 +177,10 @@ def test_eigh_composition_is_the_oracle():
     ((2, 600, 600), None), ((16, 600, 600), 8), ((2, 600, 600), 300),
     ((2, 600, 600), 600), ((1, 2048, 2048), 8), ((1, 2048, 2048), 1000)])
 def test_plan_for_matches_repro_static_planner(shape, k, monkeypatch):
-    """With no calibration table repro plans on the same static constants."""
+    """With no calibration table both packages plan on the same static
+    constants."""
     monkeypatch.setattr(r_autotune, "get_table", lambda: None)
+    monkeypatch.setattr(autotune, "get_table", lambda: None)
     ref = r_engine.plan_for(shape, k=k, backend="pallas")
     assert plan_for(shape, k=k) == plan_from_reference(dataclasses.asdict(ref))
 
@@ -186,6 +197,10 @@ def test_plan_from_reference_maps_backends_and_refuses_sharding():
                          ("pallas", "cuda")):
         fields = dataclasses.asdict(r_engine.SolverPlan(backend=r_name))
         assert plan_from_reference(fields).backend == name
+    fields = dataclasses.asdict(r_engine.SolverPlan(
+        method="eei_krylov", backend="pallas", krylov_m=64))
+    assert plan_from_reference(fields) == SolverPlan(
+        method="eei_krylov", backend="cuda", krylov_m=64)
     fields = dataclasses.asdict(r_engine.SolverPlan(backend="jnp"))
     fields["backend"] = "sharded"
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -200,7 +215,10 @@ def test_stack_from_numpy_keeps_or_casts_the_dtype():
 
 def test_registered_compositions_validate():
     assert registry.available_compositions() == [
+        "eei_dense", "eei_dense_windowed", "eei_krylov", "eei_krylov_si",
         "eei_tridiag", "eei_tridiag_windowed", "eigh"]
+    for name in ("eei_krylov", "eei_krylov_si"):
+        assert registry.composition_for(name).solve is None
     assert registry.available_backends() == ["cuda", "reference", "torch"]
     bad = registry.Composition(
         name="bad", method="eei_tridiag", windowed=False,
