@@ -70,11 +70,24 @@ Phases, each of which fails the run (non-zero exit) on error:
    program launch it, there also by its card time in a CUDA graph),
    split one solve into its stages, and time the end-to-end solve against
    ``torch.linalg.eigh`` and the session update against a top-k from
-   scratch.
+   scratch;
+11. serve five streams through ``EeiServer`` on the card, each request
+   checked against float64 ``torch.linalg.eigh``: (1) 64 mixed requests
+   (n in {96, 192, 288}, k in 1..8) with each bucket planned under the
+   committed table, caller-driven and threaded (linger 2 ms), beside the
+   ``--sync`` loop of ``launch/serve.py`` on the same stream; (2) the main
+   path's 16 matrices of n = 600 in float64 under a named ``eei_tridiag``
+   plan, bitwise ``topk_program(plan, 8, True, verify=True)`` on the
+   recorded stack; (3) 64 packed requests (n in {16, 32, 48}) at rows of
+   512, kernel 3's chain; (4) stream 1 threaded under 5% chaos a point,
+   with no failed request; (5) a session on the first n = 600 matrix, 8
+   updates at ~1% of ||A||_F.  No plain version may run on these paths;
+   every launch of kernels 1 and 3 in streams 1-3 and 5 is held bitwise
+   against its plain version afterwards, kernel 2's within its tolerance.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
-run of the packed program), 7 and 8 and read just after, and a kernel that
-its path did not launch fails the run.
+run of the packed program), 7, 8 and each stream of 11 and read just after,
+and a kernel that its path did not launch fails the run.
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 TF32 is off for matmul and cuDNN throughout, so float32 products run in
@@ -155,6 +168,16 @@ KRYLOV_SI_M = 256
 #: The Householder leg beside the Krylov topk is timed at KRYLOV_N unless
 #: one call there took longer than this (s); then at n = 1024.
 DENSE_LEG_LIMIT_S = 60.0
+#: The server phase: a mixed stream of make_eei_stream(*SERVE_MIXED,
+#: mixed=True) (n in {96, 192, 288}, k in 1..8) through EeiServer at
+#: max_batch SERVE_BATCH, caller-driven and with a linger of SERVE_LINGER_MS
+#: (and once more under chaos at SERVE_CHAOS_RATE a point); a packed stream
+#: of make_eei_stream(*SERVE_PACKED, mixed=True) (n in {16, 32, 48}) at rows
+#: of SERVE_PACK_ROW_N; SERVE_SESSION_UPDATES session updates at ~1% of
+#: ||A||_F.  Every wait is bounded by SERVE_WAIT_S.
+SERVE_MIXED, SERVE_PACKED = (64, 192, 8), (64, 32, 8)
+SERVE_BATCH, SERVE_LINGER_MS, SERVE_CHAOS_RATE = 8, 2.0, 0.05
+SERVE_PACK_ROW_N, SERVE_SESSION_UPDATES, SERVE_WAIT_S = 512, 8, 600
 
 
 class PhaseError(RuntimeError):
@@ -167,6 +190,7 @@ def check(cond, msg: str) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -229,6 +253,8 @@ def main() -> int:
     records += _krylov_records(torch, krylov)
     print(f"[timing] the dense, Krylov and calibration phases took "
           f"{time.perf_counter() - t_new:.1f} s")
+    records += _phase_server(torch, dev, stack, kernels)
+    print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
     smi = subprocess.run(
@@ -2202,6 +2228,505 @@ def _phase_calibration(torch):
     active = autotune.get_table()
     check(active is not None and active.source == "repo-default",
           f"calibration: the planner reads {active}")
+
+
+# -- the serving runtime -------------------------------------------------------
+
+
+class _LogRecords:
+    """The records one logger emits while attached (``with``)."""
+
+    def __init__(self, name):
+        import logging
+
+        self.records = []
+        self._logger = logging.getLogger(name)
+        self._handler = logging.Handler()
+        self._handler.emit = self.records.append
+
+    def __enter__(self):
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+
+
+def _arm_server_capture():
+    """Capture every launch of kernels 1, 2 and 3 by the names their callers
+    look them up under, and count every call of their plain versions.
+    Returns ``(calls, plain, undo)``."""
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+    from repro_torch.kernels.prod_diff import ops as pd_ops
+    from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.kernels.sturm import ops as st_ops
+
+    calls = {"sturm_bisect": [], "sturm_segmented": [], "logabs_sum": []}
+    plain = dict.fromkeys(calls, 0)
+    undo = [_capture(st_ops, "sturm_bisect", calls["sturm_bisect"]),
+            _capture(st_ops, "sturm_segmented", calls["sturm_segmented"]),
+            _capture(pd_ops, "logabs_sum_batched", calls["logabs_sum"])]
+    for module, attr, key in (
+            (st_kernel, "sturm_bisect_plain", "sturm_bisect"),
+            (st_kernel, "sturm_segmented_plain", "sturm_segmented"),
+            (pd_kernel, "logabs_sum_plain", "logabs_sum")):
+        fn = getattr(module, attr)
+
+        def counting(*args, _fn=fn, _key=key, **kwargs):
+            plain[_key] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(module, attr, counting)
+        undo.append(lambda m=module, a=attr, f=fn: setattr(m, a, f))
+    return calls, plain, lambda: [u() for u in reversed(undo)]
+
+
+def _same(torch, x, y) -> bool:
+    """Bitwise-equal tensors (same shape and dtype), or equal values."""
+    if torch.is_tensor(x) or torch.is_tensor(y):
+        return (torch.is_tensor(x) and torch.is_tensor(y)
+                and x.shape == y.shape and x.dtype == y.dtype
+                and torch.equal(x, y))
+    return x == y
+
+
+def _serve_stream(server, stream, threaded):
+    """Submit ``stream``, drain (caller-driven: ``flush``; threaded: the
+    linger thread alone), close; every wait bounded.  Returns the results
+    and the wall seconds from the first submit to the last result."""
+    t0 = time.perf_counter()
+    futs = [server.submit(a, k) for a, k in stream]
+    if not threaded:
+        server.flush()
+    results = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+    wall = time.perf_counter() - t0
+    stranded = server.close(timeout=SERVE_WAIT_S)
+    check(not stranded, f"server: {len(stranded)} futures left unresolved")
+    return results, wall
+
+
+def _check_requests(torch, dev, stream, results, what):
+    """Each float32 request against float64 ``torch.linalg.eigh`` of its
+    matrix at the smoke's float32 gates: eigenvalues within 2e-4 of
+    ||A||_2, residuals within 2e-3 of ||A||_F.  Returns the worst pair."""
+    import numpy as np
+
+    worst_lam = worst_res = 0.0
+    for n in sorted({a.shape[0] for a, _ in stream}):
+        idx = [i for i, (a, _) in enumerate(stream) if a.shape[0] == n]
+        a = torch.as_tensor(np.stack([stream[i][0] for i in idx]),
+                            dtype=torch.float64, device=dev)
+        w = torch.linalg.eigvalsh(a)
+        for j, i in enumerate(idx):
+            k = stream[i][1]
+            lam = torch.as_tensor(np.asarray(results[i].eigenvalues),
+                                  dtype=torch.float64, device=dev)
+            vec = torch.as_tensor(np.asarray(results[i].vectors),
+                                  dtype=torch.float64, device=dev)
+            check(tuple(lam.shape) == (k,) and tuple(vec.shape) == (k, n)
+                  and bool(torch.isfinite(vec).all()),
+                  f"{what} request {i}: shapes {tuple(lam.shape)}, "
+                  f"{tuple(vec.shape)} or non-finite vectors")
+            err = float((lam - w[j, -k:]).abs().max() / w[j].abs().max())
+            res = float((a[j] @ vec.T - vec.T * lam).norm(dim=0).max()
+                        / a[j].norm())
+            check(err <= 2e-4 and res <= 2e-3,
+                  f"{what} request {i} (n={n}, k={k}): eigenvalue error "
+                  f"{err:.3e} of ||A||_2 (limit 2e-4), residual {res:.3e} "
+                  f"of ||A||_F (limit 2e-3)")
+            worst_lam, worst_res = max(worst_lam, err), max(worst_res, res)
+    return worst_lam, worst_res
+
+
+def _server_line(tag, stats, wall, requests):
+    print(f"[server] {tag}: {requests} requests in {wall:.3f} s, "
+          f"{requests / wall:.2f} requests/s; p50 "
+          f"{stats['p50_latency_ms']:.1f} ms, p99 "
+          f"{stats['p99_latency_ms']:.1f} ms; {stats['stacks_dispatched']} "
+          f"stacks ({stats['packed_stacks_dispatched']} packed), "
+          f"{stats['program_compiles']} program builds over "
+          f"{stats['distinct_buckets']} buckets; pad waste "
+          f"{stats['pad_waste_frac']:.4f}; verify failed "
+          f"{stats['verify_failed']}, degraded {stats['requests_degraded']} "
+          f"{stats['fallbacks_by_plan']}, failed {stats['requests_failed']}")
+
+
+def _phase_server(torch, dev, stack, kernels):
+    """The serving runtime (``EeiServer``, ``launch/serve.py``) on the card:
+    five streams, each through the entry points a user calls, with the
+    launch counts set to 0 just before and read just after each; every
+    launch of kernels 1, 2 and 3 in streams 1-3 and 5 held against its
+    plain version afterwards; no plain version may run on the path."""
+    import numpy as np
+
+    from repro_torch.engine import (EeiServer, SolverPlan, plan_for,
+                                    topk_program, verify_topk_host)
+    from repro_torch.engine.server import make_eei_stream
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.runtime import ChaosConfig, ChaosMonkey
+
+    t_phase = time.perf_counter()
+    mixed = make_eei_stream(*SERVE_MIXED, seed=0, mixed=True)
+    packed_stream = make_eei_stream(*SERVE_PACKED, seed=1, mixed=True)
+    a_main = stack.cpu().numpy()  # the main path's 16 requests of n = 600
+    main_stream = [(a_main[i], K) for i in range(B)]
+    rng = np.random.default_rng(SEED + 16)
+    fro = float(np.linalg.norm(a_main[0]))
+    updates = [rng.standard_normal(N) * np.sqrt(0.01 * fro / N)
+               for _ in range(SERVE_SESSION_UPDATES)]
+
+    calls, plain, undo = _arm_server_capture()
+    streams = {}
+
+    def counted(tag, fn):
+        """Run one stream with the counts at 0 just before and read just
+        after; its captured launches are ``streams[tag]``."""
+        start = {key: len(c) for key, c in calls.items()}
+        _reset_counts()
+        for key in plain:
+            plain[key] = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _read_counts()
+        check(not any(plain.values()), f"server {tag}: plain versions ran "
+              f"on the card's path: {plain}")
+        got = {key: c[start[key]:] for key, c in calls.items()}
+        for key, launched in got.items():
+            check(len(launched) == counts[key], f"server {tag}: {key} "
+                  f"launched {counts[key]} times, {len(launched)} captured")
+        check(counts["logabs_sum_masked"] == counts["logabs_sum_single"] == 0
+              and all(c[1].get("mask") is None for c in got["logabs_sum"]),
+              f"server {tag}: launches {counts}")
+        print(f"[server] {tag}: launches {counts} in {wall:.3f} s")
+        streams[tag] = dict(calls=got, counts=counts)
+        return out
+
+    try:
+        # 1. Per-bucket planning under the committed table, caller-driven
+        # then threaded.
+        for mode, linger in (("caller-driven", None),
+                             ("threaded", SERVE_LINGER_MS)):
+            tag = f"stream 1 {mode}"
+            server = EeiServer(None, max_batch=SERVE_BATCH, verify=True,
+                               linger_ms=linger, record_dispatches=True)
+            check(server.device.type == dev.type, f"{tag}: {server.device}")
+            results, wall = counted(tag, lambda: _serve_stream(
+                server, mixed, linger is not None))
+            stats = server.stats()
+            picks = {}
+            for rec in server.dispatch_log:
+                b = rec.bucket
+                check(rec.plan == plan_for((b.b, b.n, b.n), k=b.k)
+                      and rec.plan.backend == "cuda",
+                      f"{tag}: bucket {b} ran {rec.plan}")
+                picks[(b.n, b.k)] = f"{rec.plan.method}/{rec.plan.spectrum}"
+            print(f"[server] {tag} picks by (n, k) bucket: " + ", ".join(
+                f"n={n} k={k} {pick}" for (n, k), pick in sorted(
+                    picks.items())))
+            check(stats["requests_completed"] == len(mixed)
+                  and stats["requests_failed"] == 0,
+                  f"{tag}: {stats}")
+            err, res = _check_requests(torch, dev, mixed, results, tag)
+            _server_line(tag, stats, wall, len(mixed))
+            print(f"[server] {tag}: every request within the float32 gates "
+                  f"of float64 eigh (worst eigenvalue error {err:.3e} of "
+                  f"||A||_2, residual {res:.3e} of ||A||_F)")
+            check(streams[tag]["counts"]["sturm_bisect"] > 0
+                  and streams[tag]["counts"]["logabs_sum"] > 0,
+                  f"{tag}: kernels 1 and 2 not both launched")
+        with _LogRecords("repro_torch.serve") as log:
+            serve_cli.main(["--eei", "--sync", "--mixed", "--requests",
+                            str(SERVE_MIXED[0]), "--n", str(SERVE_MIXED[1]),
+                            "--k", str(SERVE_MIXED[2]), "--batch",
+                            str(SERVE_BATCH), "--seed", "0"])
+        served = [r.args for r in log.records
+                  if r.msg.startswith("sync loop served")]
+        check(len(served) == 1, f"sync loop: {len(served)} summary lines")
+        count, seconds = served[0][:2]
+        print(f"[server] stream 1 --sync loop (launch/serve.py, plan "
+              f"{plan_for((SERVE_BATCH, SERVE_MIXED[1], SERVE_MIXED[1]), k=SERVE_MIXED[2])}"
+              f"): {count} requests in {seconds:.3f} s, "
+              f"{count / seconds:.2f} requests/s")
+
+        # 2. The main path: 16 requests of n = 600, float64, plan named.
+        tag = "stream 2 main path"
+        server = EeiServer(SolverPlan(method="eei_tridiag"),
+                           dtype=torch.float64, max_batch=B, verify=True,
+                           record_dispatches=True)
+        results, wall = counted(tag, lambda: _serve_stream(
+            server, main_stream, False))
+        stats = server.stats()
+        _server_line(tag, stats, wall, B)
+        check(stats["stacks_dispatched"] == 1 and stats["verify_failed"] == 0
+              and stats["requests_degraded"] == 0
+              and streams[tag]["counts"]["sturm_bisect"] == 2
+              and streams[tag]["counts"]["logabs_sum"] == 1,
+              f"{tag}: {stats}, launches {streams[tag]['counts']}")
+        main_program_ms = wall * 1e3
+    finally:
+        undo()
+    # The served results bitwise topk_program(plan, 8, True, verify=True)
+    # on the recorded stack (outside the counted run).
+    rec = server.dispatch_log[0]
+    ref, flags = topk_program(rec.plan, rec.bucket.k, rec.bucket.largest,
+                              verify=True)(torch.tensor(rec.stack, device=dev))
+    check(bool(flags.ok.all()), f"{tag}: the program's verify flags")
+    for row, req in enumerate(rec.requests):
+        got = req.future.result(timeout=0)
+        check(np.array_equal(got.eigenvalues,
+                             ref.eigenvalues[row, -req.k:].cpu().numpy())
+              and np.array_equal(got.vectors,
+                                 ref.vectors[row, -req.k:].cpu().numpy()),
+              f"{tag}: request {row} differs from topk_program's row")
+    _check_topk(torch, stack, (
+        torch.as_tensor(np.stack([r.eigenvalues for r in results]),
+                        device=dev),
+        torch.as_tensor(np.stack([r.vectors for r in results]), device=dev)),
+        "float64", "server main path")
+    print(f"[server] {tag}: every request bitwise topk_program({rec.plan}, "
+          f"{rec.bucket.k}, True, verify=True) on the recorded "
+          f"{rec.bucket} stack")
+
+    calls, plain, undo = _arm_server_capture()
+    try:
+        # 3. Packed: pack="always" at rows of 512.
+        tag = "stream 3 packed"
+        server = EeiServer(None, max_batch=SERVE_BATCH, pack="always",
+                           pack_row_n=SERVE_PACK_ROW_N, verify=True,
+                           record_dispatches=True)
+        plan = server._packed_plan()
+        print(f"[server] {tag}: packed_plan_for({SERVE_PACK_ROW_N}) is "
+              f"{plan}")
+        check(plan.method == "eei_tridiag" and plan.backend == "cuda",
+              f"{tag}: the packed plan {plan}")
+        results, wall = counted(tag, lambda: _serve_stream(
+            server, packed_stream, False))
+        stats = server.stats()
+        _server_line(tag, stats, wall, len(packed_stream))
+        check(stats["requests_failed"] == 0
+              and stats["packed_stacks_dispatched"]
+              == stats["stacks_dispatched"]
+              == streams[tag]["counts"]["sturm_segmented"] > 0,
+              f"{tag}: {stats}, launches {streams[tag]['counts']}")
+        worst = 0.0
+        for i, ((a, k), res) in enumerate(zip(packed_stream, results)):
+            w = np.linalg.eigvalsh(a.astype(np.float64))[-k:]
+            err = float(np.abs(res.eigenvalues - w).max()
+                        / max(1.0, float(np.abs(w).max())))
+            check(err <= PACK_TOL and np.all(np.isfinite(res.vectors)),
+                  f"{tag} request {i}: eigenvalue error {err:.3e} of "
+                  f"max(1, |lambda|max) > {PACK_TOL:g}")
+            worst = max(worst, err)
+        print(f"[server] {tag}: {stats['packed_requests_completed']} "
+              f"requests from packed slots, {stats['verify_failed']} slots "
+              f"missed verify and went down the fallback chain "
+              f"{stats['fallbacks_by_plan']}; every request within "
+              f"{PACK_TOL:g} of max(1, |lambda|max) (worst {worst:.3e})")
+
+        # 4. Chaos soak: stream 1, threaded, faults at 5% a point.
+        tag = "stream 4 chaos"
+        chaos = ChaosMonkey(ChaosConfig(seed=0, rate=SERVE_CHAOS_RATE))
+        server = EeiServer(None, max_batch=SERVE_BATCH, verify=True,
+                           linger_ms=SERVE_LINGER_MS, chaos=chaos)
+        results, wall = counted(tag, lambda: _serve_stream(
+            server, mixed, True))
+        stats = server.stats()
+        _server_line(tag, stats, wall, len(mixed))
+        check(stats["requests_failed"] == 0
+              and stats["requests_completed"] == len(mixed),
+              f"{tag}: {stats}")
+        degraded = [(a, r) for (a, _), r in zip(mixed, results)
+                    if r.degraded]
+        for a, r in degraded:
+            check(bool(verify_topk_host(a, r.eigenvalues, r.vectors).ok),
+                  f"{tag}: a degraded result ({r.fallback}) fails verify")
+        err, res = _check_requests(torch, dev, mixed, results, tag)
+        print(f"[server] {tag}: injected {stats['chaos_injected']}; "
+              f"retries {stats['retries']}, stack splits "
+              f"{stats['stack_splits']}, verify failed "
+              f"{stats['verify_failed']}, fallbacks "
+              f"{stats['fallbacks_by_plan']}; {len(degraded)} degraded "
+              f"results, each verified; every request within the float32 "
+              f"gates (worst {err:.3e} / {res:.3e})")
+        del streams[tag]  # its launches are not held against plain ones
+
+        # 5. A session through the server on the main path's first matrix.
+        tag = "stream 5 session"
+        server = EeiServer(None, verify=True)
+        print(f"[server] {tag}: plan {server._session_plan(N, K)}")
+
+        def session_stream():
+            sid = server.open_session(a_main[0], K)
+            a_now = a_main[0].copy()
+            out = []
+            for u in updates:
+                a_now = a_now + np.outer(u, u)
+                out.append((a_now, server.submit_update(sid, u).result(
+                    timeout=SERVE_WAIT_S)))
+            return out
+
+        steps = counted(tag, session_stream)
+        server.close(timeout=SERVE_WAIT_S)
+        span0 = None
+        worst = 0.0
+        for i, (a_now, res) in enumerate(steps):
+            w = np.linalg.eigvalsh(a_now)
+            span0 = span0 or float(w[-1] - w[0])
+            rel = float(np.abs(np.asarray(res.eigenvalues, np.float64)
+                               - w[-K:]).max()) / span0
+            check(rel <= SESSION_TOL and bool(verify_topk_host(
+                a_now, res.eigenvalues, res.vectors).ok),
+                f"{tag} update {i}: eigenvalue error {rel:.3e} of the span "
+                f"(limit {SESSION_TOL:g}) or verify failed")
+            worst = max(worst, rel)
+        stats = server.stats()
+        print(f"[server] {tag}: {stats['session_updates']} updates "
+              f"({stats['session_fast_updates']} fast, "
+              f"{stats['session_full_resolves']} full re-solves, "
+              f"{stats['session_degraded']} degraded); worst eigenvalue "
+              f"error {worst:.3e} of the span (limit {SESSION_TOL:g})")
+        check(streams[tag]["counts"]["sturm_segmented"]
+              >= stats["session_fast_updates"] > 0,
+              f"{tag}: launches {streams[tag]['counts']}, {stats}")
+    finally:
+        undo()
+    serve_s = time.perf_counter() - t_phase
+
+    # Every captured launch against its plain version: kernels 1 and 3
+    # bitwise, kernel 2 within its tolerance (as in phase 2).  A launch on
+    # operands already checked (phase 2's float64 spectrum and minor bands,
+    # or an earlier launch) is held against that checked result instead.
+    kd = kernels["float64"]
+    known = {"sturm_bisect": [
+        ((kd["d"], kd["e"], kd["bnd"]), dict(target_base=0, m=N,
+                                             n_iter=kd["iters"]),
+         kd["lam"], kd["plain_ms"]["spectrum"]),
+        ((kd["dm"], kd["em"], kd["mbnd"]), dict(target_base=0, m=N - 1,
+                                                n_iter=kd["iters"]),
+         kd["mu"].reshape(B * N, N - 1), kd["plain_ms"]["minor"])],
+        "sturm_segmented": [], "logabs_sum": []}
+    plains = {"sturm_bisect": "sturm_bisect_plain",
+              "sturm_segmented": "sturm_segmented_plain",
+              "logabs_sum": "logabs_sum_plain"}
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+    from repro_torch.kernels.sturm import kernel as st_kernel
+
+    t_check = time.perf_counter()
+    summary, timed = {}, {}
+    for tag, sd in streams.items():
+        for key, launched in sd["calls"].items():
+            module = pd_kernel if key == "logabs_sum" else st_kernel
+            n_plain = n_known = 0
+            for args, kwargs, got in launched:
+                kwargs = {k: v for k, v in kwargs.items() if k != "mask"}
+                same = [entry for entry in known[key]
+                        if entry[1].keys() == kwargs.keys()
+                        and all(_same(torch, v, entry[1][x])
+                                for x, v in kwargs.items())
+                        and all(_same(torch, x, y)
+                                for x, y in zip(args, entry[0]))]
+                if same:
+                    ref, ms = same[0][2], same[0][3]
+                    n_known += 1
+                else:
+                    fn = getattr(module, plains[key])
+                    ref, ms = _plain_ms(torch, lambda: fn(*args, **kwargs))
+                    known[key].append((args, kwargs, ref, ms))
+                    n_plain += 1
+                err = 0.0
+                if key == "logabs_sum":
+                    err = _max_err(torch, got, ref, *TOL[(
+                        "prod_diff", str(got.dtype)[6:])],
+                        f"server {tag} kernel 2 {tuple(got.shape)}")
+                else:
+                    check(torch.equal(got, ref), f"server {tag}: {key} "
+                          f"launch on {tuple(args[0].shape)} {kwargs.keys()} "
+                          f"!= its plain version")
+                timed.setdefault((tag, key), (args, kwargs, ms, err))
+            summary[(tag, key)] = (len(launched), n_plain, n_known)
+    print(f"[server] launches held against their plain versions in "
+          f"{time.perf_counter() - t_check:.1f} s (kernels 1 and 3 "
+          f"bitwise, kernel 2 within its tolerance): " + "; ".join(
+              f"{tag} {key} {n} ({p} plain runs, {k} on checked operands)"
+              for (tag, key), (n, p, k) in summary.items() if n))
+    print(f"[timing] the server phase took {serve_s:.1f} s to serve, "
+          f"{time.perf_counter() - t_phase:.1f} s with its checks")
+    return _server_records(torch, streams, timed, main_program_ms)
+
+
+def _server_records(torch, streams, timed, main_program_ms):
+    """The server path's kernel records: kernel 1 and kernel 2 at the main
+    path stream's launches, kernel 3 at the packed stream's; ``launches``
+    is that stream's count, ``server_launches`` the count in each stream."""
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+    from repro_torch.kernels.sturm import kernel as st_kernel
+    from repro_torch.linalg.householder import tridiagonal_matrix
+
+    per_stream = {key: {tag: sd["counts"][key] for tag, sd in streams.items()}
+                  for key in ("sturm_bisect", "logabs_sum",
+                              "sturm_segmented")}
+    records = []
+    main, packed = "stream 2 main path", "stream 3 packed"
+
+    (d, e, bounds), kw, plain_ms, _ = timed[(main, "sturm_bisect")]
+    fn = lambda: st_kernel.sturm_bisect(d, e, bounds, **kw)  # noqa: E731
+    rows, n = d.shape
+    bound, by = _sturm_cost(rows, n, kw["m"], kw["n_iter"], d.element_size(),
+                            "float64")
+    dense = tridiagonal_matrix(d, e)
+    records.append(_record(
+        f"sturm_bisect[server main path: spectrum {rows}x{n}, float64]",
+        "sturm", launches=streams[main]["counts"]["sturm_bisect"], err=0.0,
+        ms=_events_ms(torch, fn, warmup=3, reps=20), plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by,
+        library_ms=_events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
+                              warmup=1, reps=5),
+        server_launches=per_stream["sturm_bisect"],
+        stream_ms=main_program_ms))
+
+    (lam, mu, floor), _, plain_ms, err = timed[(main, "logabs_sum")]
+    fn = lambda: pd_kernel.logabs_sum(lam, mu, floor)  # noqa: E731
+    bsz, i_n = lam.shape
+    j_n, k_n = mu.shape[1:]
+    nbytes = (bsz * i_n + bsz * j_n * k_n + bsz + bsz * i_n * j_n) \
+        * lam.element_size()
+    bound, by = _bound(bsz * i_n * j_n * k_n * PROD_DIFF_OPS_PER_TERM,
+                       nbytes, "float64")
+    records.append(_record(
+        f"logabs_sum[server main path {bsz}x{i_n}x{j_n}x{k_n}, float64]",
+        "prod_diff", launches=streams[main]["counts"]["logabs_sum"],
+        err=err,
+        ms=_events_ms(torch, fn, warmup=3, reps=20), plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None,
+        server_launches=per_stream["logabs_sum"]))
+
+    (d, e), lanes, plain_ms, _ = timed[(packed, "sturm_segmented")]
+    n_iter = lanes["n_iter"]
+    lanes = {k: v for k, v in lanes.items() if k != "n_iter"}
+    fn = lambda: st_kernel.sturm_segmented(d, e, **lanes, n_iter=n_iter)  # noqa: E731
+    rows, n = d.shape
+    m = lanes["lo"].shape[1]
+    name = str(d.dtype)[6:]
+    seg_steps = int((lanes["end"] - lanes["start"]).sum())
+    ops = seg_steps * n_iter * (STURM_OPS_PER_STEP + SEGMENT_COMPARE_OPS)
+    nbytes = ((rows * n + rows * (n - 1) + 4 * rows * m) * d.element_size()
+              + 3 * rows * m * 4)
+    bound, by = _bound(ops, nbytes, name)
+    dense = tridiagonal_matrix(d, e)
+    records.append(_record(
+        f"sturm_segmented[server packed stream {rows}x{n}, {m} lanes, "
+        f"{name}]", "sturm_segmented",
+        launches=streams[packed]["counts"]["sturm_segmented"], err=0.0,
+        ms=_events_ms(torch, fn, warmup=3, reps=20), plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by,
+        library_ms=_events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
+                              warmup=1, reps=5),
+        server_launches=per_stream["sturm_segmented"]))
+    for r in records:
+        _print_record(r)
+    return records
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

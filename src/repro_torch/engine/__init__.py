@@ -13,15 +13,30 @@
 
     session = engine.open_session(a, k=8)           # one (n, n) matrix
     top = engine.update(session, Rank1Update(u, 1)) # A <- A + u u^T
+
+    with EeiServer(max_batch=8) as server:          # serving: device="cuda"
+        fut = server.submit(a, k=8)                 # one (n, n) request
+    top = fut.result()                              # numpy (k,), (k, n)
 """
 
+from repro_torch.engine.autotune import (  # noqa: F401
+    CalibrationTable,
+    calibrate,
+    get_table,
+    load_table,
+    set_table,
+)
 from repro_torch.engine.plan import (  # noqa: F401
     BackendName,
     Method,
     SolverPlan,
     Spectrum,
+    fallback_chain,
     packed_plan_for,
     plan_for,
+    resolved_crossovers,
+    resolved_krylov_n_min,
+    resolved_windowed_k_frac,
 )
 from repro_torch.engine.registry import (  # noqa: F401
     Composition,
@@ -31,6 +46,7 @@ from repro_torch.engine.registry import (  # noqa: F401
     available_compositions,
     composition_for,
     get_backend,
+    get_composition,
     register_backend,
     register_composition,
 )
@@ -55,4 +71,14 @@ from repro_torch.engine.verify import (  # noqa: F401
     verify_topk,
     verify_topk_host,
     verify_topk_packed,
+)
+from repro_torch.engine.server import (  # noqa: F401
+    DegradedResult,
+    DispatchRecord,
+    EeiServer,
+    ProgramCache,
+    QueueFull,
+    ServerClosed,
+    ShapeBucket,
+    VerifyFailed,
 )

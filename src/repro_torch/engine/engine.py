@@ -49,6 +49,10 @@ class TopkResult(NamedTuple):
     eigenvalues: torch.Tensor
     vectors: torch.Tensor
 
+    # Class-level marker so callers can test `result.degraded` uniformly;
+    # the server's ``DegradedResult`` subclass overrides it.
+    degraded = False
+
 
 class PackedTopkResult(NamedTuple):
     """Per-slot windows of a segment-packed stack: ``eigenvalues (b, S,

@@ -101,6 +101,38 @@ def resolved_packed_eigh_n_max() -> int:
     return _measured("packed_eigh_n_max", PACKED_EIGH_N_MAX)
 
 
+def fallback_chain() -> tuple:
+    """``((name, SolverPlan), ...)``: the per-request escalation chain.
+
+    The serving runtime walks it after a request is isolated (a
+    single-request stack that still fails, or a stack row failing verify),
+    re-solving the *unpadded* matrix under each plan in turn and verifying
+    the result on the host before it may resolve the future.  Ordered
+    cheap-to-certain, as ``repro``'s:
+
+    1. the windowed EEI chain (the request's own fast path without its
+       co-batch);
+    2. the full-spectrum EEI chain (a full bisection is sturdier than
+       index-targeted windows on clustered spectra);
+    3. shift-and-invert Krylov, the escape for clustered extremal groups;
+    4. ``eigh``.
+
+    The server appends a terminal numpy ``eigh`` link of its own.  The
+    links name the ``cuda`` backend where ``repro``'s name ``jnp``: on CPU
+    tensors it runs the same plain versions as ``torch``, and on the card
+    it runs the kernels, where ``torch``'s Sturm bisection is the plain
+    Python loop (seconds a call).
+    """
+    return (
+        ("eei_windowed", SolverPlan(
+            method="eei_tridiag", backend="cuda", spectrum="windowed")),
+        ("eei_full", SolverPlan(method="eei_tridiag", backend="cuda")),
+        ("eei_krylov_si", SolverPlan(
+            method="eei_krylov_si", backend="cuda", spectrum="windowed")),
+        ("eigh", SolverPlan(method="eigh", backend="cuda")),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverPlan:
     """Immutable, hashable description of one way to run the EEI pipeline."""

@@ -179,6 +179,16 @@ def register_composition(comp: Composition) -> None:
     _BY_METHOD[(comp.method, comp.windowed)] = comp.name
 
 
+def get_composition(name: str) -> Composition:
+    """The composition registered under ``name``."""
+    try:
+        return _COMPOSITIONS[name]
+    except KeyError:
+        raise KeyError(
+            f"no composition {name!r} registered; available: "
+            f"{sorted(_COMPOSITIONS)}") from None
+
+
 def available_compositions() -> list:
     return sorted(_COMPOSITIONS)
 
