@@ -80,10 +80,16 @@ Phases, each of which fails the run (non-zero exit) on error:
    plan, bitwise ``topk_program(plan, 8, True, verify=True)`` on the
    recorded stack; (3) 64 packed requests (n in {16, 32, 48}) at rows of
    512, kernel 3's chain; (4) stream 1 threaded under 5% chaos a point,
-   with no failed request; (5) a session on the first n = 600 matrix, 8
-   updates at ~1% of ||A||_F.  No plain version may run on these paths;
-   every launch of kernels 1 and 3 in streams 1-3 and 5 is held bitwise
-   against its plain version afterwards, kernel 2's within its tolerance.
+   then caller-driven under launch and NaN faults that must reach the
+   fallback chain, with no failed request; (5) a session on the first
+   n = 600 matrix, 8 updates at ~1% of ||A||_F.  Stream 1 is also served
+   one request at a time under the server's bucket plans, beside the
+   ``--sync`` loop's one plan.  No plain version may run on these paths,
+   and no retry, bisection, verify miss or fallback may happen but for the
+   causes a stream allows (none in 1, 2 and 5; verify misses in 3;
+   injected faults in 4); every launch of kernels 1 and 3 in streams 1-3
+   and 5 is held bitwise against its plain version afterwards, kernel 2's
+   within its tolerance.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
 run of the packed program), 7, 8 and each stream of 11 and read just after,
@@ -178,6 +184,14 @@ DENSE_LEG_LIMIT_S = 60.0
 SERVE_MIXED, SERVE_PACKED = (64, 192, 8), (64, 32, 8)
 SERVE_BATCH, SERVE_LINGER_MS, SERVE_CHAOS_RATE = 8, 2.0, 0.05
 SERVE_PACK_ROW_N, SERVE_SESSION_UPDATES, SERVE_WAIT_S = 512, 8, 600
+#: What the committed H100 table (engine/calibration_default.json) picks for
+#: each n of the mixed stream's buckets (k buckets to 8).
+SERVE_PICKS = {96: "eigh", 192: "eei_tridiag", 288: "eei_krylov"}
+#: The forced-fault chaos run: launch and NaN faults only, from a seed whose
+#: schedule over the mixed stream (a function of the seed and the dispatch
+#: sequence alone in caller-driven mode) sends requests down the fallback
+#: chain from both; the run fails if it does not.
+SERVE_FORCED_FAULTS = dict(seed=1, launch_rate=0.5, nan_rate=0.3)
 
 
 class PhaseError(RuntimeError):
@@ -240,11 +254,15 @@ def main() -> int:
     sessions = _phase_session(torch, dev, stack)
     packed = _phase_packed(torch, dev)
     records = _phase_timing(torch, dev, stack, kernels, counts)
+    # The phase-2 records of kernels 1 and 2 and the packed program's of
+    # kernel 3 also carry the server streams' launches (phase 11).
+    on_server_path = list(records)
     records += _phase_timing_other_kernels(torch, dev, kernels, segmented, variants,
                                  op_counts, sessions)
     for name, pk in packed.items():
         records.append(_packed_record(torch, dev, name, pk))
         _print_record(records[-1])
+        on_server_path.append(records[-1])
     t_new = time.perf_counter()
     dense = _phase_dense(torch, dev)
     krylov = _phase_krylov(torch, dev)
@@ -253,7 +271,10 @@ def main() -> int:
     records += _krylov_records(torch, krylov)
     print(f"[timing] the dense, Krylov and calibration phases took "
           f"{time.perf_counter() - t_new:.1f} s")
-    records += _phase_server(torch, dev, stack, kernels)
+    server_launches, server_record = _phase_server(torch, dev, stack, kernels)
+    for r in on_server_path:
+        r["server_launches"] = server_launches[r["name"].split("[")[0]]
+    records.append(server_record)
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -2234,7 +2255,8 @@ def _phase_calibration(torch):
 
 
 class _LogRecords:
-    """The records one logger emits while attached (``with``)."""
+    """The records of level INFO and above that one logger emits while
+    attached (``with``)."""
 
     def __init__(self, name):
         import logging
@@ -2243,13 +2265,52 @@ class _LogRecords:
         self._logger = logging.getLogger(name)
         self._handler = logging.Handler()
         self._handler.emit = self.records.append
+        self._level = None
 
     def __enter__(self):
+        import logging
+
+        self._level = self._logger.level
+        if not self._logger.isEnabledFor(logging.INFO):
+            self._logger.setLevel(logging.INFO)
         self._logger.addHandler(self._handler)
         return self
 
     def __exit__(self, *exc):
         self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+
+
+def _check_faults(tag, records, causes=()):
+    """Every retry, bisection and degraded result that the server logged in
+    one stream had one of ``causes`` (exception types) as its cause, and the
+    server logged no other warning or error.  A kernel that failed to build
+    or launch, a device error at a copy, or a crashed thread thus fails the
+    run even where the fallback chain served the requests.  Returns the
+    count of each kind of event by the cause's type name."""
+    import logging
+
+    from repro_torch.runtime.chaos import ChaosError
+
+    events = {}
+    for r in records:
+        if r.msg.startswith("EEI dispatch retry"):
+            kind, exc = "retry", r.args[2]
+        elif r.msg.startswith("EEI stack of"):
+            kind, exc = "split", r.args[1]
+        elif r.msg.startswith("EEI request") and "degraded" in r.msg:
+            kind, exc = "degraded", r.args[3]
+        elif r.msg.endswith("thread: injected crash; restarting"):
+            kind, exc = "restart", ChaosError(r.msg)
+        elif r.levelno >= logging.WARNING:
+            kind, exc = "other", None
+        else:
+            continue
+        check(isinstance(exc, tuple(causes)),
+              f"{tag}: the server logged {r.getMessage()!r}")
+        key = (kind, type(exc).__name__)
+        events[key] = events.get(key, 0) + 1
+    return events
 
 
 def _arm_server_capture():
@@ -2292,8 +2353,9 @@ def _same(torch, x, y) -> bool:
 
 def _serve_stream(server, stream, threaded):
     """Submit ``stream``, drain (caller-driven: ``flush``; threaded: the
-    linger thread alone), close; every wait bounded.  Returns the results
-    and the wall seconds from the first submit to the last result."""
+    linger thread alone), close; every wait bounded.  Returns the futures,
+    their results and the wall seconds from the first submit to the last
+    result."""
     t0 = time.perf_counter()
     futs = [server.submit(a, k) for a, k in stream]
     if not threaded:
@@ -2302,7 +2364,33 @@ def _serve_stream(server, stream, threaded):
     wall = time.perf_counter() - t0
     stranded = server.close(timeout=SERVE_WAIT_S)
     check(not stranded, f"server: {len(stranded)} futures left unresolved")
-    return results, wall
+    return futs, results, wall
+
+
+def _sync_loop_s(torch, dev, stream, plans):
+    """``launch/serve.py``'s ``--sync`` loop (warm-up of each (n, k), then
+    one ``engine.topk`` and its copy to the host a request), but with each
+    request under ``plans[i]`` instead of one plan for the stream.  Returns
+    the loop's wall seconds."""
+    from repro_torch.engine import SolverEngine
+
+    engines = {}
+
+    def solve(a, k, plan):
+        if plan not in engines:
+            engines[plan] = SolverEngine(plan, dev)
+        res = engines[plan].topk(torch.as_tensor(a, device=dev), k)
+        return res.eigenvalues.cpu().numpy(), res.vectors.cpu().numpy()
+
+    seen = {}
+    for (a, k), plan in zip(stream, plans):
+        seen.setdefault((a.shape[0], k, plan), a)
+    for (_, k, plan), a in seen.items():
+        solve(a, k, plan)
+    t0 = time.perf_counter()
+    for (a, k), plan in zip(stream, plans):
+        solve(a, k, plan)
+    return time.perf_counter() - t0
 
 
 def _check_requests(torch, dev, stream, results, what):
@@ -2353,17 +2441,21 @@ def _server_line(tag, stats, wall, requests):
 
 def _phase_server(torch, dev, stack, kernels):
     """The serving runtime (``EeiServer``, ``launch/serve.py``) on the card:
-    five streams, each through the entry points a user calls, with the
-    launch counts set to 0 just before and read just after each; every
-    launch of kernels 1, 2 and 3 in streams 1-3 and 5 held against its
-    plain version afterwards; no plain version may run on the path."""
+    five streams (the chaos one twice), each through the entry points a
+    user calls, with the launch counts set to 0 just before and read just
+    after each; every launch of kernels 1, 2 and 3 in streams 1-3 and 5
+    held against its plain version afterwards; no plain version may run on
+    the path, and no retry, bisection or fallback may happen in a stream
+    but for the causes that stream allows.  Returns each wrapper's launches
+    by stream and the record of kernel 3 at the packed stream's shape."""
     import numpy as np
 
     from repro_torch.engine import (EeiServer, SolverPlan, plan_for,
                                     topk_program, verify_topk_host)
-    from repro_torch.engine.server import make_eei_stream
+    from repro_torch.engine.server import VerifyFailed, make_eei_stream
     from repro_torch.launch import serve as serve_cli
     from repro_torch.runtime import ChaosConfig, ChaosMonkey
+    from repro_torch.runtime.chaos import ChaosError, ChaosFailure
 
     t_phase = time.perf_counter()
     mixed = make_eei_stream(*SERVE_MIXED, seed=0, mixed=True)
@@ -2376,18 +2468,20 @@ def _phase_server(torch, dev, stack, kernels):
                for _ in range(SERVE_SESSION_UPDATES)]
 
     calls, plain, undo = _arm_server_capture()
-    streams = {}
+    streams, launches, logs = {}, {}, {}
 
     def counted(tag, fn):
         """Run one stream with the counts at 0 just before and read just
-        after; its captured launches are ``streams[tag]``."""
+        after; its captured launches are ``streams[tag]``, its counts
+        ``launches[tag]``, the server's log records ``logs[tag]``."""
         start = {key: len(c) for key, c in calls.items()}
         _reset_counts()
         for key in plain:
             plain[key] = 0
         t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
+        with _LogRecords("repro_torch.engine.server") as log:
+            out = fn()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = _read_counts()
         check(not any(plain.values()), f"server {tag}: plain versions ran "
@@ -2401,7 +2495,18 @@ def _phase_server(torch, dev, stack, kernels):
               f"server {tag}: launches {counts}")
         print(f"[server] {tag}: launches {counts} in {wall:.3f} s")
         streams[tag] = dict(calls=got, counts=counts)
+        launches[tag], logs[tag] = counts, log.records
         return out
+
+    def clean(tag, stats, requests):
+        """Every request served from a stack that retired whole: no retry,
+        bisection, verify miss or fallback."""
+        check(stats["requests_completed"] == requests
+              and stats["requests_failed"] == stats["requests_degraded"]
+              == stats["verify_failed"] == stats["retries"]
+              == stats["stack_splits"] == 0
+              and stats["fallbacks_by_plan"] == {}, f"{tag}: {stats}")
+        _check_faults(tag, logs[tag])
 
     try:
         # 1. Per-bucket planning under the committed table, caller-driven
@@ -2412,22 +2517,28 @@ def _phase_server(torch, dev, stack, kernels):
             server = EeiServer(None, max_batch=SERVE_BATCH, verify=True,
                                linger_ms=linger, record_dispatches=True)
             check(server.device.type == dev.type, f"{tag}: {server.device}")
-            results, wall = counted(tag, lambda: _serve_stream(
+            futs, results, wall = counted(tag, lambda: _serve_stream(
                 server, mixed, linger is not None))
             stats = server.stats()
-            picks = {}
+            clean(tag, stats, len(mixed))
+            picks, plan_of = {}, {}
             for rec in server.dispatch_log:
                 b = rec.bucket
                 check(rec.plan == plan_for((b.b, b.n, b.n), k=b.k)
-                      and rec.plan.backend == "cuda",
-                      f"{tag}: bucket {b} ran {rec.plan}")
+                      and rec.plan.backend == "cuda"
+                      and rec.plan.method == SERVE_PICKS.get(b.n),
+                      f"{tag}: bucket {b} ran {rec.plan}; the committed "
+                      f"table picks {SERVE_PICKS}")
                 picks[(b.n, b.k)] = f"{rec.plan.method}/{rec.plan.spectrum}"
+                plan_of.update((id(req.future), rec.plan)
+                               for req in rec.requests)
+            check({n for n, _ in picks} == set(SERVE_PICKS)
+                  and all(id(f) in plan_of for f in futs),
+                  f"{tag}: buckets {sorted(picks)}, or a request served "
+                  f"from no dispatched stack")
             print(f"[server] {tag} picks by (n, k) bucket: " + ", ".join(
                 f"n={n} k={k} {pick}" for (n, k), pick in sorted(
                     picks.items())))
-            check(stats["requests_completed"] == len(mixed)
-                  and stats["requests_failed"] == 0,
-                  f"{tag}: {stats}")
             err, res = _check_requests(torch, dev, mixed, results, tag)
             _server_line(tag, stats, wall, len(mixed))
             print(f"[server] {tag}: every request within the float32 gates "
@@ -2436,6 +2547,8 @@ def _phase_server(torch, dev, stack, kernels):
             check(streams[tag]["counts"]["sturm_bisect"] > 0
                   and streams[tag]["counts"]["logabs_sum"] > 0,
                   f"{tag}: kernels 1 and 2 not both launched")
+            if linger is None:
+                bucket_plans = [plan_of[id(f)] for f in futs]
         with _LogRecords("repro_torch.serve") as log:
             serve_cli.main(["--eei", "--sync", "--mixed", "--requests",
                             str(SERVE_MIXED[0]), "--n", str(SERVE_MIXED[1]),
@@ -2449,22 +2562,26 @@ def _phase_server(torch, dev, stack, kernels):
               f"{plan_for((SERVE_BATCH, SERVE_MIXED[1], SERVE_MIXED[1]), k=SERVE_MIXED[2])}"
               f"): {count} requests in {seconds:.3f} s, "
               f"{count / seconds:.2f} requests/s")
+        seconds = _sync_loop_s(torch, dev, mixed, bucket_plans)
+        print(f"[server] stream 1 sync loop under the server's bucket plans "
+              f"(each request alone, under the plan of the stack it rode "
+              f"in the caller-driven run): {len(mixed)} requests in "
+              f"{seconds:.3f} s, {len(mixed) / seconds:.2f} requests/s")
 
         # 2. The main path: 16 requests of n = 600, float64, plan named.
         tag = "stream 2 main path"
         server = EeiServer(SolverPlan(method="eei_tridiag"),
                            dtype=torch.float64, max_batch=B, verify=True,
                            record_dispatches=True)
-        results, wall = counted(tag, lambda: _serve_stream(
+        _, results, wall = counted(tag, lambda: _serve_stream(
             server, main_stream, False))
         stats = server.stats()
         _server_line(tag, stats, wall, B)
-        check(stats["stacks_dispatched"] == 1 and stats["verify_failed"] == 0
-              and stats["requests_degraded"] == 0
+        clean(tag, stats, B)
+        check(stats["stacks_dispatched"] == 1
               and streams[tag]["counts"]["sturm_bisect"] == 2
               and streams[tag]["counts"]["logabs_sum"] == 1,
               f"{tag}: {stats}, launches {streams[tag]['counts']}")
-        main_program_ms = wall * 1e3
     finally:
         undo()
     # The served results bitwise topk_program(plan, 8, True, verify=True)
@@ -2489,6 +2606,19 @@ def _phase_server(torch, dev, stack, kernels):
           f"{rec.bucket.k}, True, verify=True) on the recorded "
           f"{rec.bucket} stack")
 
+    def degraded_ok(tag, stream, results, stats):
+        """Every degraded result verifies on the host and came from a link
+        of the chain on the card, not from the host's eigh oracle."""
+        degraded = [(a, r) for (a, _), r in zip(stream, results)
+                    if r.degraded]
+        for a, r in degraded:
+            check(bool(verify_topk_host(a, r.eigenvalues, r.vectors).ok),
+                  f"{tag}: a degraded result ({r.fallback}) fails verify")
+        check(len(degraded) == stats["requests_degraded"]
+              and "eigh_oracle" not in stats["fallbacks_by_plan"],
+              f"{tag}: {len(degraded)} degraded results, {stats}")
+        return len(degraded)
+
     calls, plain, undo = _arm_server_capture()
     try:
         # 3. Packed: pack="always" at rows of 512.
@@ -2501,15 +2631,21 @@ def _phase_server(torch, dev, stack, kernels):
               f"{plan}")
         check(plan.method == "eei_tridiag" and plan.backend == "cuda",
               f"{tag}: the packed plan {plan}")
-        results, wall = counted(tag, lambda: _serve_stream(
+        _, results, wall = counted(tag, lambda: _serve_stream(
             server, packed_stream, False))
         stats = server.stats()
         _server_line(tag, stats, wall, len(packed_stream))
-        check(stats["requests_failed"] == 0
+        # Only a slot's verify miss may send a request down the chain.
+        _check_faults(tag, logs[tag], (VerifyFailed,))
+        check(stats["requests_failed"] == stats["retries"]
+              == stats["stack_splits"] == 0
+              and stats["verify_failed"] == stats["requests_degraded"]
+              == sum(stats["fallbacks_by_plan"].values())
               and stats["packed_stacks_dispatched"]
               == stats["stacks_dispatched"]
               == streams[tag]["counts"]["sturm_segmented"] > 0,
               f"{tag}: {stats}, launches {streams[tag]['counts']}")
+        degraded_ok(tag, packed_stream, results, stats)
         worst = 0.0
         for i, ((a, k), res) in enumerate(zip(packed_stream, results)):
             w = np.linalg.eigvalsh(a.astype(np.float64))[-k:]
@@ -2525,32 +2661,50 @@ def _phase_server(torch, dev, stack, kernels):
               f"{stats['fallbacks_by_plan']}; every request within "
               f"{PACK_TOL:g} of max(1, |lambda|max) (worst {worst:.3e})")
 
-        # 4. Chaos soak: stream 1, threaded, faults at 5% a point.
-        tag = "stream 4 chaos"
-        chaos = ChaosMonkey(ChaosConfig(seed=0, rate=SERVE_CHAOS_RATE))
-        server = EeiServer(None, max_batch=SERVE_BATCH, verify=True,
-                           linger_ms=SERVE_LINGER_MS, chaos=chaos)
-        results, wall = counted(tag, lambda: _serve_stream(
-            server, mixed, True))
-        stats = server.stats()
-        _server_line(tag, stats, wall, len(mixed))
-        check(stats["requests_failed"] == 0
-              and stats["requests_completed"] == len(mixed),
-              f"{tag}: {stats}")
-        degraded = [(a, r) for (a, _), r in zip(mixed, results)
-                    if r.degraded]
-        for a, r in degraded:
-            check(bool(verify_topk_host(a, r.eigenvalues, r.vectors).ok),
-                  f"{tag}: a degraded result ({r.fallback}) fails verify")
-        err, res = _check_requests(torch, dev, mixed, results, tag)
-        print(f"[server] {tag}: injected {stats['chaos_injected']}; "
-              f"retries {stats['retries']}, stack splits "
-              f"{stats['stack_splits']}, verify failed "
-              f"{stats['verify_failed']}, fallbacks "
-              f"{stats['fallbacks_by_plan']}; {len(degraded)} degraded "
-              f"results, each verified; every request within the float32 "
-              f"gates (worst {err:.3e} / {res:.3e})")
-        del streams[tag]  # its launches are not held against plain ones
+        # 4. Chaos: stream 1, threaded, faults at 5% a point; then
+        # caller-driven with launch and NaN faults only, no retries, from a
+        # seed whose schedule sends requests down the chain from both.
+        for tag, threaded, config, kwargs in (
+                ("stream 4 chaos", True,
+                 ChaosConfig(seed=0, rate=SERVE_CHAOS_RATE),
+                 dict(linger_ms=SERVE_LINGER_MS)),
+                ("stream 4 forced faults", False,
+                 ChaosConfig(rate=0.0, **SERVE_FORCED_FAULTS),
+                 dict(max_retries=0))):
+            server = EeiServer(None, max_batch=SERVE_BATCH, verify=True,
+                               chaos=ChaosMonkey(config), **kwargs)
+            _, results, wall = counted(tag, lambda: _serve_stream(
+                server, mixed, threaded))
+            stats = server.stats()
+            _server_line(tag, stats, wall, len(mixed))
+            # A NaN row escalates as a verify miss; nothing else may.
+            events = _check_faults(tag, logs[tag],
+                                   (ChaosFailure, ChaosError, VerifyFailed))
+            check(stats["requests_failed"] == 0
+                  and stats["requests_completed"] == len(mixed)
+                  and stats["verify_failed"]
+                  <= stats["chaos_injected"]["nan"],
+                  f"{tag}: {stats}")
+            n_degraded = degraded_ok(tag, mixed, results, stats)
+            if not threaded:
+                by_launch = events.get(("degraded", "ChaosFailure"), 0)
+                check(by_launch > 0 and stats["verify_failed"] > 0
+                      and stats["stack_splits"] > 0
+                      and by_launch + stats["verify_failed"] == n_degraded,
+                      f"{tag}: the schedule reached the chain from launch "
+                      f"faults {by_launch} and NaN rows "
+                      f"{stats['verify_failed']} times: {stats}")
+            err, res = _check_requests(torch, dev, mixed, results, tag)
+            print(f"[server] {tag}: injected {stats['chaos_injected']}; "
+                  f"retries {stats['retries']}, stack splits "
+                  f"{stats['stack_splits']}, verify failed "
+                  f"{stats['verify_failed']}, fallbacks "
+                  f"{stats['fallbacks_by_plan']}; causes logged "
+                  f"{ {f'{k} {c}': v for (k, c), v in events.items()} }; "
+                  f"{n_degraded} degraded results, each verified; every "
+                  f"request within the float32 gates (worst {err:.3e} / "
+                  f"{res:.3e})")
+            del streams[tag]  # its launches are not held against plain ones
 
         # 5. A session through the server on the main path's first matrix.
         tag = "stream 5 session"
@@ -2569,6 +2723,7 @@ def _phase_server(torch, dev, stack, kernels):
 
         steps = counted(tag, session_stream)
         server.close(timeout=SERVE_WAIT_S)
+        _check_faults(tag, logs[tag])
         span0 = None
         worst = 0.0
         for i, (a_now, res) in enumerate(steps):
@@ -2587,8 +2742,11 @@ def _phase_server(torch, dev, stack, kernels):
               f"{stats['session_full_resolves']} full re-solves, "
               f"{stats['session_degraded']} degraded); worst eigenvalue "
               f"error {worst:.3e} of the span (limit {SESSION_TOL:g})")
-        check(streams[tag]["counts"]["sturm_segmented"]
-              >= stats["session_fast_updates"] > 0,
+        check(stats["session_degraded"] == stats["requests_failed"] == 0
+              and stats["session_updates"] == stats["session_fast_updates"]
+              == SERVE_SESSION_UPDATES
+              and streams[tag]["counts"]["sturm_segmented"]
+              >= SERVE_SESSION_UPDATES,
               f"{tag}: launches {streams[tag]['counts']}, {stats}")
     finally:
         undo()
@@ -2614,7 +2772,7 @@ def _phase_server(torch, dev, stack, kernels):
     from repro_torch.kernels.sturm import kernel as st_kernel
 
     t_check = time.perf_counter()
-    summary, timed = {}, {}
+    summary, packed_launch = {}, None
     for tag, sd in streams.items():
         for key, launched in sd["calls"].items():
             module = pd_kernel if key == "logabs_sum" else st_kernel
@@ -2635,16 +2793,16 @@ def _phase_server(torch, dev, stack, kernels):
                     ref, ms = _plain_ms(torch, lambda: fn(*args, **kwargs))
                     known[key].append((args, kwargs, ref, ms))
                     n_plain += 1
-                err = 0.0
                 if key == "logabs_sum":
-                    err = _max_err(torch, got, ref, *TOL[(
+                    _max_err(torch, got, ref, *TOL[(
                         "prod_diff", str(got.dtype)[6:])],
                         f"server {tag} kernel 2 {tuple(got.shape)}")
                 else:
                     check(torch.equal(got, ref), f"server {tag}: {key} "
                           f"launch on {tuple(args[0].shape)} {kwargs.keys()} "
                           f"!= its plain version")
-                timed.setdefault((tag, key), (args, kwargs, ms, err))
+                if (tag, key) == ("stream 3 packed", "sturm_segmented"):
+                    packed_launch = packed_launch or (args, kwargs, ms)
             summary[(tag, key)] = (len(launched), n_plain, n_known)
     print(f"[server] launches held against their plain versions in "
           f"{time.perf_counter() - t_check:.1f} s (kernels 1 and 3 "
@@ -2653,56 +2811,23 @@ def _phase_server(torch, dev, stack, kernels):
               for (tag, key), (n, p, k) in summary.items() if n))
     print(f"[timing] the server phase took {serve_s:.1f} s to serve, "
           f"{time.perf_counter() - t_phase:.1f} s with its checks")
-    return _server_records(torch, streams, timed, main_program_ms)
+    by_wrapper = {key: {tag: counts[key] for tag, counts in launches.items()}
+                  for key in plains}
+    record = _server_segmented_record(
+        torch, packed_launch, launches["stream 3 packed"]["sturm_segmented"])
+    record["server_launches"] = by_wrapper["sturm_segmented"]
+    _print_record(record)
+    return by_wrapper, record
 
 
-def _server_records(torch, streams, timed, main_program_ms):
-    """The server path's kernel records: kernel 1 and kernel 2 at the main
-    path stream's launches, kernel 3 at the packed stream's; ``launches``
-    is that stream's count, ``server_launches`` the count in each stream."""
-    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+def _server_segmented_record(torch, launch, launches):
+    """Kernel 3's record at the packed stream's shape (the server's packed
+    rows of 512, 16 slots of k lanes a row); ``launch`` is one captured
+    launch of that stream, with its plain version's time."""
     from repro_torch.kernels.sturm import kernel as st_kernel
     from repro_torch.linalg.householder import tridiagonal_matrix
 
-    per_stream = {key: {tag: sd["counts"][key] for tag, sd in streams.items()}
-                  for key in ("sturm_bisect", "logabs_sum",
-                              "sturm_segmented")}
-    records = []
-    main, packed = "stream 2 main path", "stream 3 packed"
-
-    (d, e, bounds), kw, plain_ms, _ = timed[(main, "sturm_bisect")]
-    fn = lambda: st_kernel.sturm_bisect(d, e, bounds, **kw)  # noqa: E731
-    rows, n = d.shape
-    bound, by = _sturm_cost(rows, n, kw["m"], kw["n_iter"], d.element_size(),
-                            "float64")
-    dense = tridiagonal_matrix(d, e)
-    records.append(_record(
-        f"sturm_bisect[server main path: spectrum {rows}x{n}, float64]",
-        "sturm", launches=streams[main]["counts"]["sturm_bisect"], err=0.0,
-        ms=_events_ms(torch, fn, warmup=3, reps=20), plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by,
-        library_ms=_events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
-                              warmup=1, reps=5),
-        server_launches=per_stream["sturm_bisect"],
-        stream_ms=main_program_ms))
-
-    (lam, mu, floor), _, plain_ms, err = timed[(main, "logabs_sum")]
-    fn = lambda: pd_kernel.logabs_sum(lam, mu, floor)  # noqa: E731
-    bsz, i_n = lam.shape
-    j_n, k_n = mu.shape[1:]
-    nbytes = (bsz * i_n + bsz * j_n * k_n + bsz + bsz * i_n * j_n) \
-        * lam.element_size()
-    bound, by = _bound(bsz * i_n * j_n * k_n * PROD_DIFF_OPS_PER_TERM,
-                       nbytes, "float64")
-    records.append(_record(
-        f"logabs_sum[server main path {bsz}x{i_n}x{j_n}x{k_n}, float64]",
-        "prod_diff", launches=streams[main]["counts"]["logabs_sum"],
-        err=err,
-        ms=_events_ms(torch, fn, warmup=3, reps=20), plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None,
-        server_launches=per_stream["logabs_sum"]))
-
-    (d, e), lanes, plain_ms, _ = timed[(packed, "sturm_segmented")]
+    (d, e), lanes, plain_ms = launch
     n_iter = lanes["n_iter"]
     lanes = {k: v for k, v in lanes.items() if k != "n_iter"}
     fn = lambda: st_kernel.sturm_segmented(d, e, **lanes, n_iter=n_iter)  # noqa: E731
@@ -2715,18 +2840,13 @@ def _server_records(torch, streams, timed, main_program_ms):
               + 3 * rows * m * 4)
     bound, by = _bound(ops, nbytes, name)
     dense = tridiagonal_matrix(d, e)
-    records.append(_record(
+    return _record(
         f"sturm_segmented[server packed stream {rows}x{n}, {m} lanes, "
-        f"{name}]", "sturm_segmented",
-        launches=streams[packed]["counts"]["sturm_segmented"], err=0.0,
+        f"{name}]", "sturm_segmented", launches=launches, err=0.0,
         ms=_events_ms(torch, fn, warmup=3, reps=20), plain_ms=plain_ms,
         bound_ms=bound, bound_by=by,
         library_ms=_events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
-                              warmup=1, reps=5),
-        server_launches=per_stream["sturm_segmented"]))
-    for r in records:
-        _print_record(r)
-    return records
+                              warmup=1, reps=5))
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

@@ -328,16 +328,29 @@ def test_queue_full_under_the_except_policy():
     assert fut.result(timeout=WAIT_S).eigenvalues.shape == (1,)
 
 
+class _FailingFlags:
+    """Verify flags whose copy to the host fails, as a device error does
+    at the retire step's sync."""
+
+    @property
+    def ok(self):
+        raise RuntimeError("synthetic device error at the copy")
+
+
+@pytest.mark.parametrize("fault", ["build", "copy"])
 @pytest.mark.parametrize("fallback", [True, False])
-def test_failed_dispatch_degrades_or_fails_fast(fallback, monkeypatch):
-    """A persistent build failure bisects the stack and resolves every
-    isolated request through the fallback chain, on the server's device;
-    with ``fallback=False`` the futures hold the error.  Never stranded,
-    and the server serves normally afterwards."""
+def test_failed_dispatch_degrades_or_fails_fast(fallback, fault,
+                                                monkeypatch):
+    """A persistent failure, at the build or at the retire step's copy to
+    the host (which no chaos point reaches on the card), bisects the stack
+    and resolves every isolated request through the fallback chain, on the
+    server's device; with ``fallback=False`` the futures hold the error.
+    Never stranded, and the server serves normally afterwards."""
     rng = np.random.default_rng(12)
     server = EeiServer(PLAN, device="cpu", max_batch=4, fallback=fallback)
     devices = []
     real_engine = server_mod.engine_mod.SolverEngine
+    real_get = server.cache.get
 
     def engine_on(plan, device=None):
         devices.append(device)
@@ -346,9 +359,15 @@ def test_failed_dispatch_degrades_or_fails_fast(fallback, monkeypatch):
     def boom(*args, **kwargs):
         raise RuntimeError("synthetic build failure")
 
-    monkeypatch.setattr(server.cache, "get", boom)
+    def poisoned(*args, **kwargs):
+        program = real_get(*args, **kwargs)
+        return lambda *operands: (program(*operands)[0], _FailingFlags())
+
+    monkeypatch.setattr(server.cache, "get",
+                        boom if fault == "build" else poisoned)
     monkeypatch.setattr(server_mod.engine_mod, "SolverEngine", engine_on)
     futs = [server.submit(_sym(rng, 16), 2) for _ in range(4)]
+    server.flush()
     assert all(f.done() for f in futs)
     stats = server.stats()
     if fallback:
@@ -370,6 +389,7 @@ def test_failed_dispatch_degrades_or_fails_fast(fallback, monkeypatch):
     ok = server.submit(_sym(rng, 16), 2)
     server.flush()
     assert not ok.result(timeout=WAIT_S).degraded
+    assert server.close(timeout=WAIT_S) == []
 
 
 def test_fallback_chain_names_repro_links_on_the_cuda_backend():
