@@ -89,11 +89,35 @@ Phases, each of which fails the run (non-zero exit) on error:
    causes a stream allows (none in 1, 2 and 5; verify misses in 3;
    injected faults in 4); every launch of kernels 1 and 3 in streams 1-3
    and 5 is held bitwise against its plain version afterwards, kernel 2's
-   within its tolerance.
+   within its tolerance;
+12. serve stream 1 through ``EeiFleet`` on the card, in five parts: (1)
+   three in-process replicas, clean: 0 failed, redispatched, killed or
+   deadline deaths, every key on its rendezvous owner (``route_key``) but
+   for hedged attempts, beside phase 11's threaded single server; (2) the
+   same under replica chaos from a seed whose schedule kills, hangs and
+   slows a replica, the deadline set from part 1's p99: 0 failed, at
+   least one kill, restart, redispatch and deadline death; (3) 16 of its
+   requests through two worker processes that need the card, worker 0
+   SIGKILLed mid-stream: nothing stranded, two compute processes more
+   on the card than before the fleet (``nvidia-smi``), after the warm-up
+   and again after the restart, with the workers' start time, HBM (the
+   card's used memory before and with them) and restart time; (4) a session on the first
+   n = 600 matrix whose replica is killed after 4 of 8 updates: the next
+   result a ``DegradedResult("session_reopen")``, every step at the
+   session gates; (5) ``launch/serve.py --replicas 3 --chaos-replicas``
+   on the stream, 0 failed.  Every request at the served-request gates;
+   every replica death, redispatch and session failover's cause read from
+   the fleet's log (``_check_fleet_log``); no plain version on the path;
+   every in-process launch of parts 1, 2 and 4 held against its plain
+   version.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
-run of the packed program), 7, 8 and each stream of 11 and read just after,
-and a kernel that its path did not launch fails the run.
+run of the packed program), 7, 8, each stream of 11 and each part of 12 and
+read just after, and a kernel that its path did not launch fails the run.
+The records of kernels 1, 2 and 3 on the served paths carry the launches of
+phase 11's streams (``server_launches``) and of phase 12's in-process parts
+(``fleet_launches``; the worker processes' launches are not counted in this
+process).
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 TF32 is off for matmul and cuDNN throughout, so float32 products run in
@@ -192,6 +216,22 @@ SERVE_PICKS = {96: "eigh", 192: "eei_tridiag", 288: "eei_krylov"}
 #: sequence alone in caller-driven mode) sends requests down the fallback
 #: chain from both; the run fails if it does not.
 SERVE_FORCED_FAULTS = dict(seed=1, launch_rate=0.5, nan_rate=0.3)
+#: The fleet phase: stream 1 through EeiFleet(FLEET_REPLICAS) at FLEET_SALT,
+#: which spreads its keys over the replicas (n = 192 on replica 0, 96 on 1,
+#: 288 on 2; over two replicas 192 and 288 on 0, 96 on 1).  The replica
+#: chaos run draws from FLEET_CHAOS, whose schedule over the stream's 64
+#: submits (a function of the seed and the dispatch sequence, checked on
+#: the CPU) fires a kill at submit 16, a hang at 38 and a slowdown at 52:
+#: each kind once, and no kill after the hang, so the hung replica is the
+#: deadline probe's to find.  Its deadline_s is FLEET_DEADLINE_X times the
+#: clean fleet run's p99 (at least FLEET_DEADLINE_MIN_S) and a hang lasts
+#: twice that.  FLEET_SUBPROCESS requests of the stream go through two
+#: worker processes, worker 0 SIGKILLed mid-stream; the session fails over
+#: after the first half of the SERVE_SESSION_UPDATES updates.
+FLEET_REPLICAS, FLEET_SALT, FLEET_SUBPROCESS = 3, 7, 16
+FLEET_CHAOS = dict(seed=51, replica_kill_rate=0.03, replica_hang_rate=0.02,
+                   replica_slow_rate=0.05)
+FLEET_DEADLINE_X, FLEET_DEADLINE_MIN_S = 4.0, 2.0
 
 
 class PhaseError(RuntimeError):
@@ -255,7 +295,8 @@ def main() -> int:
     packed = _phase_packed(torch, dev)
     records = _phase_timing(torch, dev, stack, kernels, counts)
     # The phase-2 records of kernels 1 and 2 and the packed program's of
-    # kernel 3 also carry the server streams' launches (phase 11).
+    # kernel 3 also carry the server streams' launches (phase 11) and the
+    # fleet's in-process ones (phase 12).
     on_server_path = list(records)
     records += _phase_timing_other_kernels(torch, dev, kernels, segmented, variants,
                                  op_counts, sessions)
@@ -271,23 +312,32 @@ def main() -> int:
     records += _krylov_records(torch, krylov)
     print(f"[timing] the dense, Krylov and calibration phases took "
           f"{time.perf_counter() - t_new:.1f} s")
-    server_launches, server_record = _phase_server(torch, dev, stack, kernels)
+    served = _phase_server(torch, dev, stack, kernels)
+    fleet_launches = _phase_fleet(torch, dev, stack, served)
     for r in on_server_path:
-        r["server_launches"] = server_launches[r["name"].split("[")[0]]
-    records.append(server_record)
+        kind = r["name"].split("[")[0]
+        r["server_launches"] = served["launches"][kind]
+        r["fleet_launches"] = fleet_launches[kind]
+    served["record"]["fleet_launches"] = fleet_launches["sturm_segmented"]
+    records.append(served["record"])
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
+    print("nvidia-smi: " + _gpu_name_and_limit())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _gpu_name_and_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print("nvidia-smi: " + smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return smi.stdout.strip().splitlines()[0]
 
 
 def _stack(torch, dev):
@@ -2471,31 +2521,14 @@ def _phase_server(torch, dev, stack, kernels):
     streams, launches, logs = {}, {}, {}
 
     def counted(tag, fn):
-        """Run one stream with the counts at 0 just before and read just
-        after; its captured launches are ``streams[tag]``, its counts
-        ``launches[tag]``, the server's log records ``logs[tag]``."""
-        start = {key: len(c) for key, c in calls.items()}
-        _reset_counts()
-        for key in plain:
-            plain[key] = 0
-        t = time.perf_counter()
-        with _LogRecords("repro_torch.engine.server") as log:
-            out = fn()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = _read_counts()
-        check(not any(plain.values()), f"server {tag}: plain versions ran "
-              f"on the card's path: {plain}")
-        got = {key: c[start[key]:] for key, c in calls.items()}
-        for key, launched in got.items():
-            check(len(launched) == counts[key], f"server {tag}: {key} "
-                  f"launched {counts[key]} times, {len(launched)} captured")
-        check(counts["logabs_sum_masked"] == counts["logabs_sum_single"] == 0
-              and all(c[1].get("mask") is None for c in got["logabs_sum"]),
-              f"server {tag}: launches {counts}")
-        print(f"[server] {tag}: launches {counts} in {wall:.3f} s")
+        """Run one stream counted (``_run_counted``); its captured launches
+        are ``streams[tag]``, its counts ``launches[tag]``, the server's log
+        records ``logs[tag]``."""
+        out, counts, got, records = _run_counted(
+            torch, "server", tag, fn, calls, plain)
         streams[tag] = dict(calls=got, counts=counts)
-        launches[tag], logs[tag] = counts, log.records
+        launches[tag] = counts
+        logs[tag] = records["repro_torch.engine.server"]
         return out
 
     def clean(tag, stats, requests):
@@ -2541,6 +2574,10 @@ def _phase_server(torch, dev, stack, kernels):
                     picks.items())))
             err, res = _check_requests(torch, dev, mixed, results, tag)
             _server_line(tag, stats, wall, len(mixed))
+            if linger is not None:
+                single = dict(wall=wall, p50=stats["p50_latency_ms"],
+                              p99=stats["p99_latency_ms"],
+                              stacks=stats["stacks_dispatched"])
             print(f"[server] {tag}: every request within the float32 gates "
                   f"of float64 eigh (worst eigenvalue error {err:.3e} of "
                   f"||A||_2, residual {res:.3e} of ||A||_F)")
@@ -2752,12 +2789,68 @@ def _phase_server(torch, dev, stack, kernels):
         undo()
     serve_s = time.perf_counter() - t_phase
 
-    # Every captured launch against its plain version: kernels 1 and 3
-    # bitwise, kernel 2 within its tolerance (as in phase 2).  A launch on
-    # operands already checked (phase 2's float64 spectrum and minor bands,
-    # or an earlier launch) is held against that checked result instead.
+    known = _known_launches(kernels)
+    firsts = _hold_against_plain(torch, "server", streams, known)
+    print(f"[timing] the server phase took {serve_s:.1f} s to serve, "
+          f"{time.perf_counter() - t_phase:.1f} s with its checks")
+    by_wrapper = {key: {tag: counts[key] for tag, counts in launches.items()}
+                  for key in _PLAINS}
+    record = _server_segmented_record(
+        torch, firsts[("stream 3 packed", "sturm_segmented")],
+        launches["stream 3 packed"]["sturm_segmented"])
+    record["server_launches"] = by_wrapper["sturm_segmented"]
+    _print_record(record)
+    return dict(launches=by_wrapper, record=record, known=known,
+                single=single)
+
+
+#: Each captured wrapper -> its plain version in the kernel module.
+_PLAINS = {"sturm_bisect": "sturm_bisect_plain",
+           "sturm_segmented": "sturm_segmented_plain",
+           "logabs_sum": "logabs_sum_plain"}
+
+
+def _run_counted(torch, prefix, tag, fn, calls, plain,
+                 loggers=("repro_torch.engine.server",)):
+    """Run one stream with every launch count at 0 just before and read just
+    after, the records of ``loggers`` captured.  Fails if a plain version
+    ran, if a wrapper's count and its captured launches disagree, or if a
+    masked or single-matrix prod-diff kernel launched.  Returns ``(fn's
+    output, the counts, the captured launches by wrapper, the log records
+    by logger)``."""
+    from contextlib import ExitStack
+
+    start = {key: len(c) for key, c in calls.items()}
+    _reset_counts()
+    for key in plain:
+        plain[key] = 0
+    t = time.perf_counter()
+    with ExitStack() as stack:
+        records = {name: stack.enter_context(_LogRecords(name)).records
+                   for name in loggers}
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _read_counts()
+    check(not any(plain.values()), f"{prefix} {tag}: plain versions ran "
+          f"on the card's path: {plain}")
+    got = {key: c[start[key]:] for key, c in calls.items()}
+    for key, launched in got.items():
+        check(len(launched) == counts[key], f"{prefix} {tag}: {key} "
+              f"launched {counts[key]} times, {len(launched)} captured")
+    check(counts["logabs_sum_masked"] == counts["logabs_sum_single"] == 0
+          and all(c[1].get("mask") is None for c in got["logabs_sum"]),
+          f"{prefix} {tag}: launches {counts}")
+    print(f"[{prefix}] {tag}: launches {counts} in {wall:.3f} s")
+    return out, counts, got, records
+
+
+def _known_launches(kernels):
+    """Phase 2's float64 spectrum and minor-band launches of kernel 1 with
+    their checked results: ``{wrapper: [(args, kwargs, result, plain ms)]}``,
+    the table ``_hold_against_plain`` grows."""
     kd = kernels["float64"]
-    known = {"sturm_bisect": [
+    return {"sturm_bisect": [
         ((kd["d"], kd["e"], kd["bnd"]), dict(target_base=0, m=N,
                                              n_iter=kd["iters"]),
          kd["lam"], kd["plain_ms"]["spectrum"]),
@@ -2765,14 +2858,20 @@ def _phase_server(torch, dev, stack, kernels):
                                                 n_iter=kd["iters"]),
          kd["mu"].reshape(B * N, N - 1), kd["plain_ms"]["minor"])],
         "sturm_segmented": [], "logabs_sum": []}
-    plains = {"sturm_bisect": "sturm_bisect_plain",
-              "sturm_segmented": "sturm_segmented_plain",
-              "logabs_sum": "logabs_sum_plain"}
+
+
+def _hold_against_plain(torch, prefix, streams, known):
+    """Every captured launch of ``streams`` (``{tag: {"calls": {wrapper:
+    [(args, kwargs, result)]}}}``) against its plain version: kernels 1
+    and 3 bitwise, kernel 2 within its tolerance (as in phase 2).  A launch
+    on operands already checked (in ``known``, which grows) is held against
+    that checked result instead.  Returns the first launch of each (tag,
+    wrapper) as ``(args, kwargs, plain ms)``."""
     from repro_torch.kernels.prod_diff import kernel as pd_kernel
     from repro_torch.kernels.sturm import kernel as st_kernel
 
     t_check = time.perf_counter()
-    summary, packed_launch = {}, None
+    summary, firsts = {}, {}
     for tag, sd in streams.items():
         for key, launched in sd["calls"].items():
             module = pd_kernel if key == "logabs_sum" else st_kernel
@@ -2789,35 +2888,26 @@ def _phase_server(torch, dev, stack, kernels):
                     ref, ms = same[0][2], same[0][3]
                     n_known += 1
                 else:
-                    fn = getattr(module, plains[key])
+                    fn = getattr(module, _PLAINS[key])
                     ref, ms = _plain_ms(torch, lambda: fn(*args, **kwargs))
                     known[key].append((args, kwargs, ref, ms))
                     n_plain += 1
                 if key == "logabs_sum":
                     _max_err(torch, got, ref, *TOL[(
                         "prod_diff", str(got.dtype)[6:])],
-                        f"server {tag} kernel 2 {tuple(got.shape)}")
+                        f"{prefix} {tag} kernel 2 {tuple(got.shape)}")
                 else:
-                    check(torch.equal(got, ref), f"server {tag}: {key} "
+                    check(torch.equal(got, ref), f"{prefix} {tag}: {key} "
                           f"launch on {tuple(args[0].shape)} {kwargs.keys()} "
                           f"!= its plain version")
-                if (tag, key) == ("stream 3 packed", "sturm_segmented"):
-                    packed_launch = packed_launch or (args, kwargs, ms)
+                firsts.setdefault((tag, key), (args, kwargs, ms))
             summary[(tag, key)] = (len(launched), n_plain, n_known)
-    print(f"[server] launches held against their plain versions in "
+    print(f"[{prefix}] launches held against their plain versions in "
           f"{time.perf_counter() - t_check:.1f} s (kernels 1 and 3 "
           f"bitwise, kernel 2 within its tolerance): " + "; ".join(
               f"{tag} {key} {n} ({p} plain runs, {k} on checked operands)"
               for (tag, key), (n, p, k) in summary.items() if n))
-    print(f"[timing] the server phase took {serve_s:.1f} s to serve, "
-          f"{time.perf_counter() - t_phase:.1f} s with its checks")
-    by_wrapper = {key: {tag: counts[key] for tag, counts in launches.items()}
-                  for key in plains}
-    record = _server_segmented_record(
-        torch, packed_launch, launches["stream 3 packed"]["sturm_segmented"])
-    record["server_launches"] = by_wrapper["sturm_segmented"]
-    _print_record(record)
-    return by_wrapper, record
+    return firsts
 
 
 def _server_segmented_record(torch, launch, launches):
@@ -2847,6 +2937,477 @@ def _server_segmented_record(torch, launch, launches):
         bound_ms=bound, bound_by=by,
         library_ms=_events_ms(torch, lambda: torch.linalg.eigvalsh(dense),
                               warmup=1, reps=5))
+
+
+# -- the replica fleet ---------------------------------------------------------
+
+
+def _check_fleet_log(tag, records, reasons=()):
+    """Every failover in one fleet stream had a cause the stream allows,
+    read from the fleet's log: a replica may die only for a reason in
+    ``reasons`` (``"deadline"`` only after a chaos hang on that replica),
+    every redispatch or parked request follows a death and names a
+    replica's failure as its cause, and a session fails over only where
+    ``"session"`` is allowed.  Slow classifications and hedges are counted,
+    not refused.  Returns the count of each kind of event."""
+    import logging
+
+    from repro_torch.engine.fleet import ReplicaDied
+    from repro_torch.engine.server import ServerClosed
+
+    events, hung, dead = {}, set(), 0
+    for r in records:
+        msg = r.msg
+        if msg.startswith("fleet: chaos "):
+            kind = f"chaos {r.args[0]}"
+            if r.args[0] == "hang":
+                hung.add(r.args[1])
+        elif msg.startswith("fleet: replica %d dead"):
+            rid, reason = r.args
+            kind = "dead " + reason.split()[0]
+            if reason.startswith("deadline"):
+                ok = "deadline" in reasons and rid in hung
+            else:
+                ok = reason in reasons
+            check(ok, f"{tag}: the fleet logged {r.getMessage()!r}")
+            hung.discard(rid)
+            dead += 1
+        elif msg.startswith(("fleet: replica %d restarting",
+                             "fleet: replica %d restarted")):
+            kind = "restart"
+            check(dead > 0, f"{tag}: {r.getMessage()!r} with no death")
+        elif msg.startswith("fleet: redispatching"):
+            # A worker's EOF fails its requests before the monitor logs the
+            # death: the death is checked after the loop.
+            kind = "redispatch"
+            check(bool(reasons) and isinstance(
+                r.args[4], (ReplicaDied, ServerClosed)),
+                f"{tag}: the fleet logged {r.getMessage()!r}")
+        elif "exhausted" in msg and msg.endswith("parked"):
+            kind = "parked"
+            check(bool(reasons), f"{tag}: {r.getMessage()!r}")
+        elif msg.startswith("fleet: session %s failing over"):
+            kind = "session failover"
+            check("session" in reasons,
+                  f"{tag}: the fleet logged {r.getMessage()!r}")
+        elif msg.startswith("fleet: replica %d classified SLOW"):
+            kind = "slow"
+        elif msg.startswith("fleet: hedging"):
+            kind = "hedge"
+        elif r.levelno >= logging.WARNING:
+            kind = None
+            check(False, f"{tag}: the fleet logged {r.getMessage()!r}")
+        else:
+            continue
+        events[kind] = events.get(kind, 0) + 1
+    check(dead > 0 or not (events.get("redispatch") or events.get("parked")),
+          f"{tag}: requests failed over with no replica death: {events}")
+    return events
+
+
+def _check_replica_server_log(tag, records, killed):
+    """The replica servers' log in one fleet stream: a killed replica's
+    server may fail its queued groups with ``ServerClosed`` and report the
+    futures its ``close(timeout=0)`` left to the fleet; anything else goes
+    through ``_check_faults`` with no cause allowed."""
+    from repro_torch.engine.server import ServerClosed
+
+    rest, n_closed = [], 0
+    for r in records:
+        if killed and (
+                (r.msg.startswith("EEI stack dispatch failed")
+                 and isinstance(r.args[1], ServerClosed))
+                or r.msg.startswith("EeiServer.close(): drain did not")):
+            n_closed += 1
+        else:
+            rest.append(r)
+    _check_faults(tag, rest)
+    return n_closed
+
+
+def _fleet_line(tag, stats, wall, requests):
+    per = stats["per_replica"]
+    stacks = {rid: s.get("stacks_dispatched", "-") for rid, s in per.items()}
+    print(f"[fleet] {tag}: {requests} requests in {wall:.3f} s, "
+          f"{requests / wall:.2f} requests/s; p50 "
+          f"{stats['p50_latency_ms']:.1f} ms, p99 "
+          f"{stats['p99_latency_ms']:.1f} ms; stacks by replica {stacks}; "
+          f"hedges {stats['hedges']} (wasted {stats['hedge_wasted']}); "
+          f"redispatches {stats['redispatches']}, killed "
+          f"{stats['replicas_killed']}, restarted "
+          f"{stats['replicas_restarted']}, deadline deaths "
+          f"{stats['deadline_deaths']}, failed {stats['requests_failed']}; "
+          f"states {stats['replica_states']}")
+
+
+def _quiesce(timeout_s):
+    """Wait for every serving thread (``eei-*``: replicas' forwarders and
+    servers', killed ones' too, the fleet monitor) to end, so that no launch
+    lands after the counts are read."""
+    import threading
+
+    deadline = time.monotonic() + timeout_s
+    for t in threading.enumerate():
+        if t.name.startswith("eei-"):
+            t.join(max(deadline - time.monotonic(), 0.0))
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("eei-")]
+    check(not alive, f"fleet: threads still running: {alive}")
+
+
+def _compute_apps():
+    """What ``nvidia-smi`` says of the card's compute processes: ``(the
+    ``pid, used_memory`` lines, the card's used memory in MiB)``.  In a
+    container it may name every process by the namespace's pid 1, so the
+    lines are counted, not matched to pids."""
+    lines = []
+    for query in ("--query-compute-apps=pid,used_memory",
+                  "--query-gpu=memory.used"):
+        smi = subprocess.run(["nvidia-smi", query,
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+        lines.append([x.strip() for x in smi.stdout.strip().splitlines()
+                      if x.strip()])
+    apps, used = lines
+    print(f"[fleet] nvidia-smi compute apps (pid, MiB): {apps}; card "
+          f"memory used {used[0]} MiB")
+    return apps, float(used[0])
+
+
+def _phase_fleet(torch, dev, stack, served):
+    """The replica fleet (``EeiFleet``, ``launch/serve.py --replicas``) on
+    the card, in five parts, each through the entry points a user calls with
+    the launch counts at 0 just before and read just after: (1) stream 1
+    through a clean in-process fleet; (2) the same under replica chaos; (3)
+    part of it through two worker processes, one SIGKILLed mid-stream; (4) a
+    session whose replica is killed halfway; (5) the launcher under replica
+    chaos.  Every request at the served-request gates; every failover's
+    cause read from the fleet's log; every in-process launch of parts 1, 2
+    and 4 held against its plain version.  Returns each wrapper's launches
+    by part."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from repro_torch.engine import EeiFleet, verify_topk_host
+    from repro_torch.engine.server import DegradedResult, make_eei_stream
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.runtime import ChaosConfig, ChaosMonkey, route_key
+
+    t_phase = time.perf_counter()
+    mixed = make_eei_stream(*SERVE_MIXED, seed=0, mixed=True)
+    a_main = stack.cpu().numpy()
+    rng = np.random.default_rng(SEED + 16)  # phase 11's session updates
+    fro = float(np.linalg.norm(a_main[0]))
+    updates = [rng.standard_normal(N) * np.sqrt(0.01 * fro / N)
+               for _ in range(SERVE_SESSION_UPDATES)]
+    loggers = ("repro_torch.engine.fleet", "repro_torch.engine.server")
+    kwargs = dict(max_batch=SERVE_BATCH, linger_ms=SERVE_LINGER_MS,
+                  verify=True)
+    restart = dict(max_restarts=1000, base_delay_s=0.05, cap_s=0.5)
+    calls, plain, undo = _arm_server_capture()
+    streams, launches = {}, {}
+
+    def counted(tag, fn, hold=True):
+        out, counts, got, records = _run_counted(
+            torch, "fleet", tag, fn, calls, plain, loggers)
+        if hold:
+            streams[tag] = dict(calls=got)
+        launches[tag] = counts
+        return out, records
+
+    def serve(fleet, stream):
+        """Submit at once, wait every result, close (nothing stranded),
+        wait for the serving threads; returns results, wall and stats."""
+        try:
+            t0 = time.perf_counter()
+            futs = [fleet.submit(a, k) for a, k in stream]
+            results = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+            wall = time.perf_counter() - t0
+        finally:
+            stranded = fleet.close(timeout=SERVE_WAIT_S)
+        check(not stranded, f"fleet: {len(stranded)} futures stranded")
+        _quiesce(SERVE_WAIT_S)
+        return results, wall, fleet.stats()
+
+    try:
+        # 1. Clean, in-process: every key on its rendezvous owner.
+        tag = "part 1 clean"
+        fleet = EeiFleet(FLEET_REPLICAS, salt=FLEET_SALT,
+                         server_kwargs=dict(kwargs, record_dispatches=True))
+        servers = {rid: r.driver._server
+                   for rid, r in fleet._replicas.items()}
+        check(all(sv.device.type == dev.type for sv in servers.values()),
+              f"{tag}: replicas on {[sv.device for sv in servers.values()]}")
+        (results, wall, stats), logs = counted(
+            tag, lambda: serve(fleet, mixed))
+        _fleet_line(tag, stats, wall, len(mixed))
+        single = served["single"]
+        print(f"[fleet] {tag} beside phase 11's threaded single server on "
+              f"the same stream: {len(mixed) / single['wall']:.2f} "
+              f"requests/s, p50 {single['p50']:.1f} ms, p99 "
+              f"{single['p99']:.1f} ms, {single['stacks']} stacks")
+        check(stats["requests_completed"] == len(mixed)
+              and stats["requests_failed"] == stats["redispatches"]
+              == stats["replicas_killed"] == stats["deadline_deaths"] == 0,
+              f"{tag}: {stats}")
+        for rid, sv in servers.items():
+            st = sv.stats()
+            check(st["requests_failed"] == st["requests_degraded"]
+                  == st["verify_failed"] == st["retries"]
+                  == st["stack_splits"] == 0, f"{tag} replica {rid}: {st}")
+        _check_replica_server_log(tag, logs["repro_torch.engine.server"],
+                                  killed=False)
+        events = _check_fleet_log(tag, logs["repro_torch.engine.fleet"])
+        owners, off_owner = {}, 0
+        for rid, sv in servers.items():
+            for rec in sv.dispatch_log:
+                for req in rec.requests:
+                    key = (req.n, req.largest)
+                    owner = route_key(key, list(servers), FLEET_SALT)
+                    owners[key] = owner
+                    off_owner += rid != owner
+        # A hedged request also runs on a non-owner (its second attempt).
+        check(off_owner <= stats["hedges"] and len(set(owners.values()))
+              == FLEET_REPLICAS, f"{tag}: {off_owner} requests served off "
+              f"their owner with {stats['hedges']} hedges; owners {owners}")
+        print(f"[fleet] {tag}: owners by (n, largest) {owners}, "
+              f"{off_owner} requests served off their owner (hedged); "
+              f"fleet log {events}")
+        err, res = _check_requests(torch, dev, mixed, results, tag)
+        print(f"[fleet] {tag}: every request within the float32 gates "
+              f"(worst {err:.3e} / {res:.3e})")
+        check(launches[tag]["sturm_bisect"] > 0
+              and launches[tag]["logabs_sum"] > 0,
+              f"{tag}: kernels 1 and 2 not both launched")
+        deadline_s = max(FLEET_DEADLINE_X * stats["p99_latency_ms"] / 1e3,
+                         FLEET_DEADLINE_MIN_S)
+
+        # 2. Replica chaos, in-process.
+        tag = "part 2 replica chaos"
+        config = ChaosConfig(rate=0.0, replica_hang_s=2 * deadline_s,
+                             **FLEET_CHAOS)
+        fleet = EeiFleet(FLEET_REPLICAS, salt=FLEET_SALT,
+                         server_kwargs=kwargs, deadline_s=deadline_s,
+                         chaos=ChaosMonkey(config),
+                         restart_policy_kwargs=restart)
+
+        print(f"[fleet] {tag}: deadline_s {deadline_s:.3f} "
+              f"({FLEET_DEADLINE_X:g} x part 1's p99), hang "
+              f"{config.replica_hang_s:.3f} s, {FLEET_CHAOS}")
+        (results, wall, stats), logs = counted(
+            tag, lambda: serve(fleet, mixed))
+        _fleet_line(tag, stats, wall, len(mixed))
+        injected = stats["chaos_injected"]
+        check(stats["requests_failed"] == 0
+              and stats["requests_completed"] == len(mixed)
+              and stats["replicas_killed"] >= 1
+              and stats["replicas_restarted"] >= 1
+              and stats["redispatches"] >= 1
+              and stats["deadline_deaths"] >= 1
+              and all(injected[f"replica_{x}"] >= 1
+                      for x in ("kill", "hang", "slow")),
+              f"{tag}: {stats}")
+        events = _check_fleet_log(tag, logs["repro_torch.engine.fleet"],
+                                  ("chaos kill", "deadline"))
+        closed = _check_replica_server_log(
+            tag, logs["repro_torch.engine.server"], killed=True)
+        err, res = _check_requests(torch, dev, mixed, results, tag)
+        print(f"[fleet] {tag}: injected {injected}; fleet log {events}; "
+              f"{closed} closed-server records of killed replicas; every "
+              f"request within the float32 gates (worst {err:.3e} / "
+              f"{res:.3e})")
+
+        # 3. Subprocess replicas on the card (no device: the workers need
+        # the card); worker 0 owns n = 192 and 288 at FLEET_SALT.
+        tag = "part 3 subprocess"
+        sub_stream = mixed[:FLEET_SUBPROCESS]
+        owner0 = [(a, k) for a, k in mixed
+                  if route_key((a.shape[0], True), [0, 1], FLEET_SALT) == 0]
+        warm = {}
+        for a, k in mixed:
+            warm.setdefault(a.shape[0], (a, k))
+
+        def subprocess_run():
+            out = dict(apps0=_compute_apps())
+            t0 = time.perf_counter()
+            fleet = EeiFleet(2, replica_mode="subprocess", salt=FLEET_SALT,
+                             server_kwargs=kwargs,
+                             restart_policy_kwargs=restart)
+            out.update(start_wall=time.perf_counter() - t0, fleet=fleet,
+                       starts={rid: r.driver.start_s
+                               for rid, r in fleet._replicas.items()})
+            try:
+                t0 = time.perf_counter()
+                futs = [fleet.submit(a, k) for a, k in warm.values()]
+                [f.result(timeout=SERVE_WAIT_S) for f in futs]
+                out["warm_s"] = time.perf_counter() - t0
+                pids = {rid: r.driver.stats()["pid"]
+                        for rid, r in fleet._replicas.items()}
+                out["apps"], out["pids"] = _compute_apps(), pids
+                t0 = time.perf_counter()
+                futs = [fleet.submit(a, k) for a, k in sub_stream]
+                os.kill(pids[0], signal.SIGKILL)
+                t_kill = time.perf_counter()
+                out["results"] = [f.result(timeout=SERVE_WAIT_S)
+                                  for f in futs]
+                out["wall"] = time.perf_counter() - t0
+                while fleet.stats()["replicas_restarted"] < 1:
+                    check(time.perf_counter() - t_kill < SERVE_WAIT_S,
+                          f"{tag}: worker 0 did not restart")
+                    time.sleep(0.05)
+                out["restart_s"] = time.perf_counter() - t_kill
+                out["restart_start_s"] = fleet._replicas[0].driver.start_s
+                # The restarted worker makes its CUDA context at its first
+                # request: send it a few of its own keys.
+                t0 = time.perf_counter()
+                futs = [fleet.submit(a, k) for a, k in owner0[:4]]
+                out["after"] = [f.result(timeout=SERVE_WAIT_S)
+                                for f in futs]
+                out["after_s"] = time.perf_counter() - t0
+                out["pids_after"] = {rid: r.driver.stats()["pid"]
+                                     for rid, r in fleet._replicas.items()}
+                out["apps_after"] = _compute_apps()
+            finally:
+                out["stranded"] = fleet.close(timeout=SERVE_WAIT_S)
+            return out
+
+        out, logs = counted(tag, subprocess_run, hold=False)
+        stats = out["fleet"].stats()
+        _fleet_line(tag, stats, out["wall"], len(sub_stream))
+        check(not out["stranded"] and stats["requests_failed"] == 0
+              and stats["requests_completed"]
+              == len(warm) + len(sub_stream) + len(out["after"])
+              and stats["replicas_killed"] >= 1,
+              f"{tag}: {len(out['stranded'])} stranded, {stats}")
+        # Each live worker holds a context on the card: two compute
+        # processes more than before the fleet, after the warm-up and
+        # again after the restart (the SIGKILLed worker's is gone).
+        n0, mib0 = len(out["apps0"][0]), out["apps0"][1]
+        for name, (apps, _) in (("after the warm-up", out["apps"]),
+                                ("after the restart", out["apps_after"])):
+            check(len(apps) == n0 + 2, f"{tag}: {len(apps)} compute "
+                  f"processes {name}, {n0} before the workers: {apps}")
+        check(out["pids_after"][0] != out["pids"][0]
+              and out["pids_after"][1] == out["pids"][1],
+              f"{tag}: worker pids {out['pids']} -> {out['pids_after']}")
+        hbm = (out["apps"][1] - mib0) / 2
+        events = _check_fleet_log(tag, logs["repro_torch.engine.fleet"],
+                                  ("driver died",))
+        check(launches[tag]["sturm_bisect"] == launches[tag][
+            "logabs_sum"] == 0, f"{tag}: the parent launched "
+              f"{launches[tag]}")
+        err, res = _check_requests(torch, dev, sub_stream, out["results"],
+                                   tag)
+        _check_requests(torch, dev, owner0[:4], out["after"],
+                        f"{tag} after the restart")
+        print(f"[fleet] {tag}: 2 workers (pids {out['pids']}) started in "
+              f"{out['start_wall']:.3f} s (spawn to ready: "
+              f"{ {r: round(t, 3) for r, t in out['starts'].items()} }), "
+              f"first requests (CUDA context, kernel library) "
+              f"{out['warm_s']:.3f} s; {n0} compute process(es) before "
+              f"them, {n0 + 2} with them; card memory {mib0:.0f} -> "
+              f"{out['apps'][1]:.0f} MiB, {hbm:.0f} MiB a worker; worker 0 "
+              f"SIGKILLed mid-stream, restarted (pid "
+              f"{out['pids_after'][0]}) in {out['restart_s']:.3f} s (spawn "
+              f"to ready {out['restart_start_s']:.3f} s), its first "
+              f"requests {out['after_s']:.3f} s, card memory "
+              f"{out['apps_after'][1]:.0f} MiB; fleet log {events}; every "
+              f"request within the float32 gates (worst {err:.3e} / "
+              f"{res:.3e})")
+
+        # 4. Session failover: kill the session's replica halfway.
+        tag = "part 4 session failover"
+        half = SERVE_SESSION_UPDATES // 2
+        fleet = EeiFleet(FLEET_REPLICAS, salt=FLEET_SALT,
+                         server_kwargs=dict(verify=True),
+                         restart_policy_kwargs=restart)
+
+        def session_run():
+            try:
+                sid = fleet.open_session(a_main[0], K)
+                a_now, steps = a_main[0].copy(), []
+                for i, u in enumerate(updates):
+                    if i == half:
+                        rid = fleet._sessions[sid].rid
+                        fleet._kill_replica(rid, reason="session kill")
+                    a_now = a_now + np.outer(u, u)
+                    steps.append((a_now, fleet.submit_update(sid, u).result(
+                        timeout=SERVE_WAIT_S)))
+                return steps
+            finally:
+                fleet.close(timeout=SERVE_WAIT_S)
+                _quiesce(SERVE_WAIT_S)
+
+        steps, logs = counted(tag, session_run)
+        stats = fleet.stats()
+        events = _check_fleet_log(tag, logs["repro_torch.engine.fleet"],
+                                  ("session kill", "session"))
+        _check_replica_server_log(tag, logs["repro_torch.engine.server"],
+                                  killed=True)
+        span0, worst = None, 0.0
+        for i, (a_now, res) in enumerate(steps):
+            w = np.linalg.eigvalsh(a_now)
+            span0 = span0 or float(w[-1] - w[0])
+            rel = float(np.abs(np.asarray(res.eigenvalues, np.float64)
+                               - w[-K:]).max()) / span0
+            reopened = isinstance(res, DegradedResult) and \
+                res.fallback == "session_reopen"
+            check(rel <= SESSION_TOL and bool(verify_topk_host(
+                a_now, res.eigenvalues, res.vectors).ok)
+                and reopened == (i == half),
+                f"{tag} update {i}: eigenvalue error {rel:.3e} of the span "
+                f"(limit {SESSION_TOL:g}), verify, or {type(res).__name__} "
+                f"{getattr(res, 'fallback', '')!r}")
+            worst = max(worst, rel)
+        check(stats["session_failovers"] >= 1
+              and launches[tag]["sturm_segmented"] > 0,
+              f"{tag}: {stats}, launches {launches[tag]}")
+        print(f"[fleet] {tag}: {len(steps)} updates, the replica killed "
+              f"before update {half}; session_failovers "
+              f"{stats['session_failovers']}, update {half} a "
+              f"DegradedResult('session_reopen'); worst eigenvalue error "
+              f"{worst:.3e} of the span (limit {SESSION_TOL:g}); fleet log "
+              f"{events}")
+
+        # 5. The launcher under replica chaos.
+        tag = "part 5 launcher"
+
+        def launcher_run():
+            with _LogRecords("repro_torch.serve") as log:
+                serve_cli.main(["--eei", "--replicas", str(FLEET_REPLICAS),
+                                "--chaos-replicas", "--mixed", "--requests",
+                                str(SERVE_MIXED[0]), "--n",
+                                str(SERVE_MIXED[1]), "--k",
+                                str(SERVE_MIXED[2]), "--batch",
+                                str(SERVE_BATCH), "--seed", "0"])
+            _quiesce(SERVE_WAIT_S)
+            return [r.getMessage() for r in log.records]
+
+        said, logs = counted(tag, launcher_run, hold=False)
+        _check_fleet_log(tag, logs["repro_torch.engine.fleet"],
+                         ("chaos kill", "deadline"))
+        _check_replica_server_log(tag, logs["repro_torch.engine.server"],
+                                  killed=True)
+        rollup = [m for m in said if m.startswith(("fleet served",
+                                                   "failover:",
+                                                   "chaos injected:"))]
+        check(any(m.startswith(f"fleet served {SERVE_MIXED[0]} requests")
+                  and m.endswith("| 0 unresolved at close") for m in said)
+              and any(m.startswith("chaos injected:")
+                      and m.endswith("requests_failed=0") for m in said),
+              f"{tag}: {said}")
+        print(f"[fleet] {tag}: " + " | ".join(rollup))
+    finally:
+        undo()
+    serve_s = time.perf_counter() - t_phase
+    _hold_against_plain(torch, "fleet", streams, served["known"])
+    print(f"[timing] the fleet phase took {serve_s:.1f} s to serve, "
+          f"{time.perf_counter() - t_phase:.1f} s with its checks")
+    return {key: {tag: counts[key] for tag, counts in launches.items()}
+            for key in _PLAINS}
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

@@ -17,6 +17,9 @@
     with EeiServer(max_batch=8) as server:          # serving: device="cuda"
         fut = server.submit(a, k=8)                 # one (n, n) request
     top = fut.result()                              # numpy (k,), (k, n)
+
+    with EeiFleet(3) as fleet:                      # replicas of the server
+        fut = fleet.submit(a, k=8)                  # routed, failed over
 """
 
 from repro_torch.engine.autotune import (  # noqa: F401
@@ -81,4 +84,11 @@ from repro_torch.engine.server import (  # noqa: F401
     ServerClosed,
     ShapeBucket,
     VerifyFailed,
+)
+from repro_torch.engine.fleet import (  # noqa: F401
+    EeiFleet,
+    FleetClosed,
+    InProcessReplica,
+    ReplicaDied,
+    SubprocessReplica,
 )

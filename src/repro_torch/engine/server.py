@@ -1601,6 +1601,60 @@ class EeiServer:
     def __exit__(self, exc_type, exc, tb) -> None:
         self.close()
 
+    # -- replica introspection (read by EeiFleet) --------------------------
+
+    def alive(self) -> bool:
+        """Whether this server can still make progress on admitted work.
+        A closed server, or a threaded server whose service threads died
+        (bounded restarts exhausted), is not alive."""
+        with self._cv:
+            if self._closed:
+                return False
+        if self._threaded:
+            return (self._admission_thread.is_alive()
+                    and self._retire_thread.is_alive())
+        return True
+
+    def unresolved_futures(self) -> list:
+        """Snapshot of every admitted caller future not yet resolved, in
+        submit order."""
+        with self._cv:
+            return sorted(self._unresolved, key=self._unresolved.get)
+
+    def oldest_unresolved_age_s(self, now: Optional[float] = None
+                                ) -> Optional[float]:
+        """Age of the oldest admitted-but-unresolved request (None when
+        idle) — the fleet's deadline probe: a hung replica accepts work
+        and never answers, so *only* this age keeps growing."""
+        with self._cv:
+            if not self._unresolved:
+                return None
+            oldest = min(self._unresolved.values())
+        return (time.monotonic() if now is None else now) - oldest
+
+    def pending_manifest(self) -> list:
+        """Queued-but-undispatched requests: ``[{n, k, largest, age_s}]``."""
+        now = time.monotonic()
+        with self._cv:
+            return [
+                {"n": r.n, "k": r.k, "largest": r.largest,
+                 "age_s": now - r.t_submit}
+                for q in self._queues.values() for r in q
+            ]
+
+    def inflight_manifest(self) -> list:
+        """Dispatched-but-unretired stacks: ``[{bucket, rows, oldest_age_s}]``
+        (``bucket`` labelled as ``repro`` labels it)."""
+        now = time.monotonic()
+        with self._cv:
+            return [
+                {"bucket": f"b{s.bucket.b}n{s.bucket.n}k{s.bucket.k}"
+                           + ("L" if s.bucket.largest else "S"),
+                 "rows": len(s.requests),
+                 "oldest_age_s": now - min(r.t_submit for r in s.requests)}
+                for s in self._inflight
+            ]
+
     # -- observability -----------------------------------------------------
 
     def reset_stats(self) -> None:

@@ -4,6 +4,7 @@
         --n 64 --k 4 --requests 64 [--mixed] [--sync] [--linger-ms 2] \
         [--gap-ms 1] [--pack auto|never|always] \
         [--spectrum auto|full|windowed] [--chaos SEED] [--chaos-rate 0.05] \
+        [--replicas 3 [--replica-mode subprocess] [--chaos-replicas]] \
         [--device cpu]
 
 The twin of ``python -m repro.launch.serve --eei``.  ``--mixed`` samples
@@ -14,13 +15,19 @@ host copy per matrix), the baseline the server is compared with.
 dispatches partial stacks once their oldest request has lingered that long
 (pair it with ``--gap-ms``, the mean inter-arrival sleep).  ``--chaos
 SEED`` injects faults deterministically at ``--chaos-rate`` per point; the
-stream must still complete.  The stream is made before the timed region.
+stream must still complete.  ``--replicas N`` serves through an
+``EeiFleet`` of N replica servers (rendezvous-hashed routing, health
+probes, failover redispatch, restart); ``--replica-mode subprocess`` runs
+each replica in a worker process of its own, and ``--chaos-replicas`` arms
+the replica-level kill / hang / slow points (at ``--chaos-rate``, seeded by
+``--chaos``), so replicas die mid-stream while every request must still
+resolve.  The stream is made before the timed region.
 
-The server runs on the card unless ``--device`` names another device; with
-no card and no ``--device`` it refuses to run.  Not ported yet, and refused
-when asked for: the sharded serve path (``--sharded``, ``--mesh``), the
-replica fleet (``--replicas``, ``--replica-mode``, ``--chaos-replicas``)
-and the language-model path (``--arch``).
+The server (every replica's, with ``--replicas``) runs on the card unless
+``--device`` names another device; with no card and no ``--device`` it
+refuses to run.  Not ported yet, and refused when asked for: the sharded
+serve path (``--sharded``, ``--mesh``) and the language-model path
+(``--arch``).
 """
 
 from __future__ import annotations
@@ -40,9 +47,6 @@ log = logging.getLogger("repro_torch.serve")
 _UNPORTED = {
     "sharded": ("the sharded serve path", (False,)),
     "mesh": ("the sharded serve path", (None, "1x1")),
-    "replicas": ("the replica fleet", (None, 1)),
-    "replica_mode": ("the replica fleet", (None,)),
-    "chaos_replicas": ("the replica fleet", (False,)),
     "arch": ("the language-model path", (None,)),
 }
 
@@ -118,6 +122,9 @@ def serve_eei(args):
                  len(stream) / max(dt, 1e-9), len(stream) / max(dt, 1e-9))
         return out
 
+    if args.replicas > 1:
+        return _serve_eei_fleet(args, stream, gap_s, rng)
+
     chaos = None
     if args.chaos is not None:
         from repro_torch.runtime import ChaosConfig, ChaosMonkey
@@ -184,6 +191,73 @@ def serve_eei(args):
     return futures[-1].result() if futures else None
 
 
+def _serve_eei_fleet(args, stream, gap_s, rng):
+    """Serve the stream through an ``EeiFleet`` of ``--replicas`` servers.
+
+    ``--chaos-replicas`` arms the replica-level injection points
+    (kill / hang / slow, kill and slow at ``--chaos-rate`` and hang at half
+    of it, seeded by ``--chaos``): replicas die *while serving* and the
+    stream must still complete, with the failover counters logged at the
+    end.
+    """
+    from repro_torch.engine import EeiFleet
+
+    chaos = None
+    if args.chaos_replicas:
+        from repro_torch.runtime import ChaosConfig, ChaosMonkey
+
+        seed = args.chaos if args.chaos is not None else 0
+        chaos = ChaosMonkey(ChaosConfig(
+            seed=seed, rate=0.0, replica_kill_rate=args.chaos_rate,
+            replica_hang_rate=args.chaos_rate / 2,
+            replica_slow_rate=args.chaos_rate))
+        log.info("replica chaos soak: seed=%d kill/slow rate=%.3f "
+                 "hang rate=%.3f", seed, args.chaos_rate,
+                 args.chaos_rate / 2)
+    fleet = EeiFleet(
+        args.replicas,
+        replica_mode=args.replica_mode,
+        server_kwargs=dict(
+            device=args.device, max_batch=args.batch,
+            max_inflight=args.inflight,
+            linger_ms=args.linger_ms if args.linger_ms is not None else 2.0,
+            pack=args.pack),
+        chaos=chaos,
+        restart_policy_kwargs=dict(max_restarts=1000),
+    )
+    log.info("eei fleet: %d %s replicas, max_batch=%d", args.replicas,
+             args.replica_mode, args.batch)
+    t0 = time.monotonic()
+    futures = []
+    for a, k_i in stream:
+        if gap_s:
+            time.sleep(rng.exponential(gap_s))
+        futures.append(fleet.submit(a, k_i))
+    for f in futures:
+        f.result(timeout=600)
+    dt = time.monotonic() - t0
+    stranded = fleet.close(timeout=120)
+    stats = fleet.stats()
+    log.info("fleet served %d requests in %.3fs (%.1f requests/s) | "
+             "%d unresolved at close", len(stream), dt,
+             len(stream) / max(dt, 1e-9), len(stranded))
+    log.info("fleet latency p50=%.1fms p99=%.1fms | states=%s",
+             stats["p50_latency_ms"], stats["p99_latency_ms"],
+             stats["replica_states"])
+    log.info("failover: %d redispatches, %d hedges (%d wasted), "
+             "%d kills, %d restarts, %d deadline deaths",
+             stats["redispatches"], stats["hedges"], stats["hedge_wasted"],
+             stats["replicas_killed"], stats["replicas_restarted"],
+             stats["deadline_deaths"])
+    if chaos is not None:
+        injected = ", ".join(f"{point}={count}" for point, count in
+                             sorted(stats["chaos_injected"].items())
+                             if count)
+        log.info("chaos injected: %s | requests_failed=%d",
+                 injected or "none", stats["requests_failed"])
+    return futures[-1].result() if futures else None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--eei", action="store_true",
@@ -222,6 +296,18 @@ def main(argv=None):
     ap.add_argument("--chaos-rate", type=float, default=0.05,
                     help="per-injection-point chaos probability (default "
                     "0.05; only with --chaos)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through an EeiFleet of this many replica "
+                    "servers (health-probed routing, failover redispatch, "
+                    "restart); 1 = single server")
+    ap.add_argument("--replica-mode", choices=["inprocess", "subprocess"],
+                    default="inprocess",
+                    help="fleet replica driver: in-process servers sharing "
+                    "one program cache, or one worker process per replica")
+    ap.add_argument("--chaos-replicas", action="store_true",
+                    help="fleet: arm replica-level chaos (kill/hang/slow at "
+                    "--chaos-rate, seeded by --chaos); the fleet must still "
+                    "answer every request")
     ap.add_argument("--calibration", default=None,
                     help="path to a calibration table (JSON); default: "
                     "env/cache/repo-default resolution chain")
@@ -229,17 +315,13 @@ def main(argv=None):
                     help="max requests per stack")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
-                    help="torch device to serve on (default: the card; "
-                    "'cpu' runs the kernels' plain versions)")
+                    help="torch device to serve on, every replica's with "
+                    "--replicas (default: the card; 'cpu' runs the "
+                    "kernels' plain versions)")
     # Flags of the reference launcher whose features are not ported: named
     # so that asking for one is refused, not silently ignored.
     ap.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--replicas", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--replica-mode", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--chaos-replicas", action="store_true",
-                    help=argparse.SUPPRESS)
     ap.add_argument("--arch", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for dest, (feature, single) in _UNPORTED.items():

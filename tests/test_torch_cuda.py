@@ -698,3 +698,38 @@ def test_dense_float32_topk_passes_verify_on_card(cuda_device):
         res, flags = topk_program(plan, 8, True, verify=True)(a)
         assert bool(flags.ok.all()), flags
         assert res.eigenvalues.dtype == torch.float32
+
+
+def test_fleet_of_two_replicas_on_card(cuda_device):
+    """A 2-replica in-process ``EeiFleet`` with no ``device`` serves on the
+    card: a small mixed stream under a named ``eei_tridiag`` plan launches
+    kernels 1 and 2, every request lands on its rendezvous owner, and each
+    result is within 5e-3 of float64 ``eigvalsh`` (``tests/test_fleet.py``'s
+    tolerance)."""
+    from repro_torch.engine import EeiFleet
+    from repro_torch.engine.server import make_eei_stream
+    from repro_torch.runtime import route_key
+
+    stream = make_eei_stream(12, 32, 4, seed=3, mixed=True)
+    counts = (st_kernel.sturm_bisect.launches, pd_kernel.logabs_sum.launches)
+    with EeiFleet(2, server_kwargs=dict(
+            plan=SolverPlan(method="eei_tridiag"), max_batch=4,
+            record_dispatches=True)) as fleet:
+        futs = [fleet.submit(a, k) for a, k in stream]
+        results = [f.result(timeout=300) for f in futs]
+        servers = {rid: r.driver._server
+                   for rid, r in fleet._replicas.items()}
+        assert all(s.device.type == "cuda" for s in servers.values())
+        for rid, server in servers.items():
+            for rec in server.dispatch_log:
+                for req in rec.requests:
+                    assert route_key((req.n, req.largest), [0, 1]) == rid
+        stats = fleet.stats()
+    assert stats["requests_completed"] == len(stream)
+    assert stats["requests_failed"] == stats["redispatches"] == 0
+    assert st_kernel.sturm_bisect.launches > counts[0]
+    assert pd_kernel.logabs_sum.launches > counts[1]
+    for (a, k), res in zip(stream, results):
+        w = np.linalg.eigvalsh(a.astype(np.float64))[-k:]
+        np.testing.assert_allclose(res.eigenvalues, w, rtol=5e-3, atol=5e-3)
+        assert res.vectors.shape == (k, a.shape[0])

@@ -585,8 +585,6 @@ def test_serve_cli_packed_stream_smoke():
 @pytest.mark.parametrize("args, said", [
     (["--eei", "--sharded"], "not ported"),
     (["--eei", "--mesh", "2x1"], "not ported"),
-    (["--eei", "--replicas", "3"], "not ported"),
-    (["--eei", "--chaos-replicas"], "not ported"),
     (["--arch", "gemma2-2b"], "not ported"),
     ([], "--eei is required")])
 def test_serve_cli_refuses_what_is_not_ported(args, said, capsys):
@@ -596,3 +594,28 @@ def test_serve_cli_refuses_what_is_not_ported(args, said, capsys):
         serve_cli.main(["--requests", "0", "--device", "cpu", *args])
     assert exc.value.code == 2
     assert said in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args, requests", [
+    (["--replicas", "3", "--device", "cpu", "--mixed", "--requests", "16"],
+     16),
+    (["--replicas", "2", "--replica-mode", "subprocess", "--device", "cpu",
+      "--requests", "8"], 8),
+    (["--replicas", "3", "--chaos-replicas", "--chaos", "7", "--device",
+      "cpu", "--requests", "16"], 16)],
+    ids=["fleet", "subprocess", "replica-chaos"])
+def test_serve_cli_fleet_serves(args, requests, caplog):
+    """``--replicas`` serves through ``EeiFleet`` (the replica fleet is
+    ported): every request resolves, none fails, nothing is left at close."""
+    from repro_torch.launch import serve as serve_cli
+
+    with caplog.at_level("INFO", logger="repro_torch.serve"):
+        out = serve_cli.main(["--eei", "--n", "16", "--k", "3", *args])
+    assert out is not None and np.all(np.isfinite(out.eigenvalues))
+    said = [r.getMessage() for r in caplog.records
+            if r.name == "repro_torch.serve"]
+    assert any(m.startswith(f"fleet served {requests} requests")
+               and m.endswith("| 0 unresolved at close") for m in said), said
+    if "--chaos-replicas" in args:
+        assert any(m.startswith("chaos injected:")
+                   and m.endswith("requests_failed=0") for m in said), said
