@@ -109,15 +109,31 @@ Phases, each of which fails the run (non-zero exit) on error:
    every replica death, redispatch and session failover's cause read from
    the fleet's log (``_check_fleet_log``); no plain version on the path;
    every in-process launch of parts 1, 2 and 4 held against its plain
-   version.
+   version;
+13. run the sharded backend (``core/distributed.py``) and the paper's
+   ladder: the engine on a 1x1 mesh of the card (solve, windowed and full
+   top-k, eigenvalues; float64 and float32), each result bitwise phase 3's
+   on the ``cuda`` backend; the same on a logical 2x1 mesh (the card
+   twice) at phase 3's gates, with each stage launching once a shard and a
+   stack of 3 padded to 4; a session of 8 updates at ~1% of ||A||_F on a
+   2x1 plan at the session gates; ``EeiServer(mesh=2x1)`` on stream 1,
+   every bucket even, 0 failed, no retry or fallback, every request at the
+   served-request gates; every launch of kernels 1 and 3 of the 2x1 runs
+   held bitwise against its plain version, kernel 2 within its tolerance;
+   the minor and term axes on a logical 1x2 mesh at n = 64 against the 1x1
+   mesh and eigh; every ladder variant against float64 eigh at n = 12 and
+   at the n = 200 (x10) overflow case, and one component per variant timed
+   at n = 600 beside ``numpy_ref.numpy_full_eigh`` and
+   ``numpy_ref.eigen_component_optimized`` on the host.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
-run of the packed program), 7, 8, each stream of 11 and each part of 12 and
-read just after, and a kernel that its path did not launch fails the run.
-The records of kernels 1, 2 and 3 on the served paths carry the launches of
-phase 11's streams (``server_launches``) and of phase 12's in-process parts
-(``fleet_launches``; the worker processes' launches are not counted in this
-process).
+run of the packed program), 7, 8, each stream of 11, each part of 12 and
+each run of 13 and read just after, and a kernel that its path did not
+launch fails the run.  The records of kernels 1, 2 and 3 on the served
+paths carry the launches of phase 11's streams (``server_launches``) and of
+phase 12's in-process parts (``fleet_launches``; the worker processes'
+launches are not counted in this process); every record carries its
+wrapper's launches in each run of phase 13 (``sharded_launches``).
 The line before the last holds the card's name and power limit; the one
 before it the kernels' JSON record; the last line is the JSON verdict.
 TF32 is off for matmul and cuDNN throughout, so float32 products run in
@@ -289,7 +305,7 @@ def main() -> int:
     kernels = _phase_kernels(torch, dev, stack)
     segmented = _phase_segmented(torch, dev, stack, kernels)
     variants = _phase_prod_diff_variants(torch, dev, kernels)
-    counts = _phase_engine(torch, dev, stack)
+    counts, engine_results = _phase_engine(torch, dev, stack)
     op_counts = _phase_ops(torch, dev, kernels)
     sessions = _phase_session(torch, dev, stack)
     packed = _phase_packed(torch, dev)
@@ -320,6 +336,12 @@ def main() -> int:
         r["fleet_launches"] = fleet_launches[kind]
     served["record"]["fleet_launches"] = fleet_launches["sturm_segmented"]
     records.append(served["record"])
+    sharded = _phase_sharded(torch, dev, stack, engine_results,
+                             served["known"])
+    for r in records:
+        kind = r["name"].split("[")[0]
+        r["sharded_launches"] = {tag: counts[kind]
+                                 for tag, counts in sharded.items()}
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -864,7 +886,7 @@ def _phase_engine(torch, dev, stack):
         _check_eigenvalues(torch, a, r["eigenvalues"], name, "eigenvalues")
         _check_eigenvalues(torch, a, r["eigenvalues k"], name,
                            "eigenvalues k", k=K)
-    return counts
+    return counts, results
 
 
 def _sturm_cost(rows, n, m, iters, elsize, dtype_name):
@@ -2910,6 +2932,92 @@ def _hold_against_plain(torch, prefix, streams, known):
     return firsts
 
 
+def _hold_grouped(torch, prefix, streams, known):
+    """``_hold_against_plain`` for many launches on new operands: each
+    captured launch of ``streams`` is held against its plain version
+    (kernels 1 and 3 bitwise, kernel 2 within its tolerance).  A launch on
+    operands already checked (in ``known``, or of an earlier launch here)
+    is held against that result; the plain version runs once for all other
+    launches that share a wrapper, a row shape and their other arguments,
+    on their rows stacked.  Every plain version is elementwise over rows,
+    so each launch's rows of that run are its own plain result."""
+    from repro_torch.kernels.prod_diff import kernel as pd_kernel
+    from repro_torch.kernels.sturm import kernel as st_kernel
+
+    t_check = time.perf_counter()
+
+    def operands(args, kwargs):
+        names = tuple(sorted(kwargs))
+        return names, list(args) + [kwargs[k] for k in names]
+
+    def same(a, b):
+        return (a[0] == b[0] and len(a[1]) == len(b[1])
+                and all(_same(torch, x, y) for x, y in zip(a[1], b[1])))
+
+    launches, uniques = [], {key: [] for key in _PLAINS}
+    for tag, sd in streams.items():
+        for key, launched in sd["calls"].items():
+            for args, kwargs, got in launched:
+                kwargs = {k: v for k, v in kwargs.items() if k != "mask"}
+                ops = operands(args, kwargs)
+                ref = next((entry[2] for entry in known[key]
+                            if same(ops, operands(entry[0], entry[1]))), None)
+                slot = None
+                if ref is None:
+                    slot = next((u for u in uniques[key]
+                                 if same(ops, u["ops"])), None)
+                    if slot is None:
+                        slot = dict(args=args, kwargs=kwargs, ops=ops)
+                        uniques[key].append(slot)
+                launches.append((tag, key, got, ref, slot))
+    n_runs = 0
+    for key, slots in uniques.items():
+        module = pd_kernel if key == "logabs_sum" else st_kernel
+        fn = getattr(module, _PLAINS[key])
+        groups = {}
+        for slot in slots:
+            rows = slot["args"][0].shape[0]
+            names, values = slot["ops"]
+            sig = tuple(
+                ("rows", tuple(x.shape[1:]), x.dtype)
+                if torch.is_tensor(x) and x.ndim and x.shape[0] == rows
+                else ("fixed", id(x) if torch.is_tensor(x) else x)
+                for x in values)
+            groups.setdefault((sig, names), []).append(slot)
+        for (sig, names), group in groups.items():
+            def stacked(i):
+                xs = [slot["ops"][1][i] for slot in group]
+                return torch.cat(xs) if sig[i][0] == "rows" else xs[0]
+
+            n_args = len(group[0]["args"])
+            args = [stacked(i) for i in range(n_args)]
+            kwargs = {k: stacked(n_args + j) for j, k in enumerate(names)}
+            ref, ms = _plain_ms(torch, lambda: fn(*args, **kwargs))
+            n_runs += 1
+            start = 0
+            for slot in group:
+                rows = slot["args"][0].shape[0]
+                slot["ref"] = ref[start:start + rows]
+                start += rows
+                known[key].append((slot["args"], slot["kwargs"], slot["ref"],
+                                   ms))
+    summary = {}
+    for tag, key, got, ref, slot in launches:
+        ref = slot["ref"] if ref is None else ref
+        if key == "logabs_sum":
+            _max_err(torch, got, ref, *TOL[("prod_diff", str(got.dtype)[6:])],
+                     f"{prefix} {tag} kernel 2 {tuple(got.shape)}")
+        else:
+            check(torch.equal(got, ref), f"{prefix} {tag}: {key} launch of "
+                  f"{tuple(got.shape)} != its plain version")
+        summary[(tag, key)] = summary.get((tag, key), 0) + 1
+    print(f"[{prefix}] launches held against their plain versions in "
+          f"{time.perf_counter() - t_check:.1f} s, {n_runs} plain runs on "
+          f"{sum(len(u) for u in uniques.values())} distinct launches' rows "
+          f"(kernels 1 and 3 bitwise, kernel 2 within its tolerance): "
+          + "; ".join(f"{tag} {key} {n}" for (tag, key), n in summary.items()))
+
+
 def _server_segmented_record(torch, launch, launches):
     """Kernel 3's record at the packed stream's shape (the server's packed
     rows of 512, 16 slots of k lanes a row); ``launch`` is one captured
@@ -3408,6 +3516,306 @@ def _phase_fleet(torch, dev, stack, served):
           f"{time.perf_counter() - t_phase:.1f} s with its checks")
     return {key: {tag: counts[key] for tag, counts in launches.items()}
             for key in _PLAINS}
+
+
+# -- the sharded backend and the ladder ---------------------------------------
+
+
+def _max_diff(torch, x, y) -> float:
+    """Largest absolute difference of two results (tensors or tuples)."""
+    if isinstance(x, tuple):
+        return max(_max_diff(torch, a, b) for a, b in zip(x, y))
+    return float((x.double() - y.double()).abs().max())
+
+
+def _equal(torch, x, y) -> bool:
+    if isinstance(x, tuple):
+        return all(_equal(torch, a, b) for a, b in zip(x, y))
+    return _same(torch, x, y)
+
+
+def _phase_sharded(torch, dev, stack, engine_results, known):
+    """13. The sharded backend (``SolverEngine`` on 1x1 and logical 2x1
+    meshes of the card, a session on a 2x1 plan, ``EeiServer(mesh=)``, the
+    minor and term axes) and the paper's component ladder, each through the
+    entry points a user calls, with the launch counts set to 0 just before
+    each run and read just after.  ``engine_results`` are phase 3's results
+    on the ``cuda`` backend, which the 1x1 mesh must reproduce bitwise;
+    ``known`` the launches already held against their plain versions.
+    Returns each wrapper's launches by run."""
+    import numpy as np
+
+    from repro_torch import (Rank1Update, SolverEngine, SolverPlan,
+                             make_local_mesh, plan_for)
+    from repro_torch.core import distributed, identity, minors
+    from repro_torch.engine import EeiServer, verify_topk_host
+    from repro_torch.engine.server import make_eei_stream
+
+    card = _gpu_name_and_limit()
+    print(f"[sharded] phase 13 on {card}")
+    t_phase = time.perf_counter()
+    meshes = {"1x1": make_local_mesh(1, 1),
+              "2x1": make_local_mesh(2, 1, devices=[dev, dev]),
+              "1x2": make_local_mesh(1, 2, devices=[dev, dev])}
+    check(meshes["1x1"].first_device.type == dev.type
+          and meshes["2x1"].shape == {"data": 2, "model": 1},
+          f"sharded: meshes {meshes}")
+    calls, plain, undo = _arm_server_capture()
+    streams, launches = {}, {}
+
+    def counted(tag, fn, hold=True):
+        out, counts, got, records = _run_counted(
+            torch, "sharded", tag, fn, calls, plain)
+        launches[tag] = counts
+        if hold:
+            streams[tag] = dict(calls=got, counts=counts)
+        return out, counts, records["repro_torch.engine.server"]
+
+    programs = {
+        "solve": ("full", lambda eng, a: eng.solve(a)),
+        "topk windowed": ("windowed", lambda eng, a: eng.topk(a, K)),
+        "topk full": ("full", lambda eng, a: eng.topk(a, K)),
+        "eigenvalues": ("full", lambda eng, a: eng.eigenvalues(a)),
+    }
+    #: Launches of (kernel 1, kernel 2) a call of each program on one shard.
+    per_shard = {"solve": (2, 1), "topk windowed": (1, 0),
+                 "topk full": (2, 1), "eigenvalues": (1, 0)}
+    try:
+        # 1. The engine on 1x1 (bitwise the cuda backend's phase-3 results)
+        # and on 2x1 (phase 3's gates), float64 and float32.
+        ones = {}
+        for mesh_name, shards in (("1x1", 1), ("2x1", 2)):
+            for name, dt in (("float64", torch.float64),
+                             ("float32", torch.float32)):
+                a = stack.to(dt)
+                for what, (spectrum, call) in programs.items():
+                    tag = f"{mesh_name} {what} {name}"
+                    plan = SolverPlan(method="eei_tridiag", backend="sharded",
+                                      mesh=meshes[mesh_name],
+                                      spectrum=spectrum)
+                    engine = SolverEngine(plan)
+                    check(engine.device == meshes[mesh_name].first_device,
+                          f"{tag}: engine on {engine.device}")
+                    res, counts, _ = counted(tag, lambda: call(engine, a),
+                                             hold=shards > 1)
+                    k1, k2 = per_shard[what]
+                    check(counts["sturm_bisect"] == shards * k1
+                          and counts["logabs_sum"] == shards * k2,
+                          f"{tag}: launches {counts}, expected "
+                          f"{(shards * k1, shards * k2)}")
+                    if shards == 1:
+                        ref = engine_results[name][what]
+                        check(_equal(torch, res, ref), f"{tag}: not bitwise "
+                              f"the cuda backend's result")
+                        ones[(what, name)] = res
+                        continue
+                    if what == "solve":
+                        _check_solve(torch, a, res, name)
+                    elif what.startswith("topk"):
+                        _check_topk(torch, a, res, name, f"2x1 {what}")
+                    else:
+                        _check_eigenvalues(torch, a, res, name,
+                                           "2x1 eigenvalues")
+                    print(f"[sharded] {tag}: max difference from the 1x1 "
+                          f"result {_max_diff(torch, res, ones[(what, name)]):.3e}")
+        print("[sharded] 1x1 mesh: solve, topk windowed and full, "
+              "eigenvalues bitwise the cuda backend's results, float64 and "
+              "float32; one launch a stage")
+        # A stack of 3 is padded to 4 and sliced back.
+        plan = SolverPlan(method="eei_tridiag", backend="sharded",
+                          mesh=meshes["2x1"], spectrum="windowed")
+        a3 = stack[:3]
+        res, counts, _ = counted("2x1 topk windowed, stack of 3",
+                                 lambda: SolverEngine(plan).topk(a3, K))
+        check(tuple(res.eigenvalues.shape) == (3, K)
+              and counts["sturm_bisect"] == 2,
+              f"stack of 3: shapes {tuple(res.eigenvalues.shape)}, "
+              f"launches {counts}")
+        seen = streams["2x1 topk windowed, stack of 3"]["calls"]
+        check([tuple(args[0].shape) for args, _, _ in seen["sturm_bisect"]]
+              == [(2, N)] * 2, "stack of 3: shards "
+              f"{[tuple(c[0][0].shape) for c in seen['sturm_bisect']]}")
+        _check_topk(torch, a3, res, "float64", "2x1 topk windowed, stack of 3")
+
+        # 2. A session on the 2x1 plan: 8 updates at ~1% of ||A||_F.
+        a_np = stack[0].cpu().numpy()
+        rng = np.random.default_rng(SEED + 16)
+        fro = float(np.linalg.norm(a_np))
+        updates = [rng.standard_normal(N) * np.sqrt(0.01 * fro / N)
+                   for _ in range(SERVE_SESSION_UPDATES)]
+        engine = SolverEngine(SolverPlan(
+            method="eei_tridiag", backend="sharded", mesh=meshes["2x1"],
+            spectrum="windowed", precision="float64"))
+
+        def session_stream():
+            session = engine.open_session(a_np, K)
+            a_now, out = a_np.copy(), []
+            for u in updates:
+                a_now = a_now + np.outer(u, u)
+                out.append((a_now, engine.update(session, Rank1Update(u, 1))))
+            return session, out
+
+        (session, steps), counts, _ = counted("2x1 session", session_stream)
+        span0, worst = None, 0.0
+        for i, (a_now, res) in enumerate(steps):
+            w = np.linalg.eigvalsh(a_now)
+            span0 = span0 or float(w[-1] - w[0])
+            got = res.eigenvalues.double().cpu().numpy()
+            rel = float(np.abs(got - w[-K:]).max()) / span0
+            check(rel <= SESSION_TOL and bool(verify_topk_host(
+                a_now, got, res.vectors.double().cpu().numpy()).ok),
+                f"2x1 session update {i}: eigenvalue error {rel:.3e} of the "
+                f"span (limit {SESSION_TOL:g}) or verify failed")
+            worst = max(worst, rel)
+        per_update = counts["sturm_segmented"] / SERVE_SESSION_UPDATES
+        check(session.fast_updates == SERVE_SESSION_UPDATES
+              and session.full_resolves == 0 and per_update == 2,
+              f"2x1 session: {session.stats()}, launches {counts}")
+        print(f"[sharded] 2x1 session, float64: {session.fast_updates} fast "
+              f"updates, {per_update:g} kernel-3 launches an update (one a "
+              f"shard); worst eigenvalue error {worst:.3e} of the span "
+              f"(limit {SESSION_TOL:g})")
+
+        # 3. EeiServer(mesh=2x1) on stream 1, caller-driven.
+        tag = "2x1 server stream 1"
+        mixed = make_eei_stream(*SERVE_MIXED, seed=0, mixed=True)
+        server = EeiServer(None, mesh=meshes["2x1"], max_batch=SERVE_BATCH,
+                           verify=True, record_dispatches=True)
+        (_, results, wall), counts, records = counted(
+            tag, lambda: _serve_stream(server, mixed, False))
+        stats = server.stats()
+        check(stats["requests_completed"] == len(mixed)
+              and stats["requests_failed"] == stats["requests_degraded"]
+              == stats["verify_failed"] == stats["retries"]
+              == stats["stack_splits"] == 0
+              and stats["fallbacks_by_plan"] == {}, f"{tag}: {stats}")
+        _check_faults(tag, records)
+        picks = {}
+        for rec in server.dispatch_log:
+            b = rec.bucket
+            check(b.b % 2 == 0 and rec.plan == plan_for(
+                (b.b, b.n, b.n), k=b.k, mesh=meshes["2x1"])
+                and rec.plan.backend == "sharded"
+                and rec.plan.method == SERVE_PICKS.get(b.n),
+                f"{tag}: bucket {b} ran {rec.plan}")
+            picks[(b.n, b.k)] = f"{rec.plan.method}/{rec.plan.spectrum}"
+        check(counts["sturm_bisect"] > 0 and counts["logabs_sum"] > 0,
+              f"{tag}: kernels 1 and 2 not both launched: {counts}")
+        err, res_err = _check_requests(torch, dev, mixed, results, tag)
+        _server_line(tag, stats, wall, len(mixed))
+        print(f"[sharded] {tag}: every bucket even, sharded "
+              + ", ".join(f"n={n} k={k} {p}" for (n, k), p in
+                          sorted(picks.items()))
+              + f"; 0 failed, 0 retries, 0 fallbacks; every request within "
+              f"the float32 gates (worst {err:.3e} / {res_err:.3e}); {card}")
+    finally:
+        undo()
+    known = {key: list(v) for key, v in known.items()}
+    _hold_grouped(torch, "sharded", streams, known)
+
+    # 4. The minor and term axes on a logical 1x2 mesh, at n = 64.
+    rng = np.random.default_rng(SEED + 13)
+    a64 = rng.standard_normal((64, 64))
+    a64 = (a64 + a64.T) / 2
+    lam_ref, v_ref = np.linalg.eigh(a64)
+    mags_ref = (v_ref * v_ref).T
+    from repro_torch.engine.backends import _card_float64
+
+    # The term axis takes the spectra the minor axis computes (float64 on
+    # the card, cast to the input's dtype).
+    eigvalsh = _card_float64(torch.linalg.eigvalsh)
+    pairs = ((0, 0), (31, 63), (63, 5))
+    ref = np.array([mags_ref[i, j] for i, j in pairs])
+    for name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        a = torch.as_tensor(a64, dtype=dt, device=dev)
+        tables = {m: distributed.minor_sharded_magnitudes(a, meshes[m])
+                  for m in ("1x1", "1x2")}
+        lam = eigvalsh(a)
+        mu = eigvalsh(minors.all_minors(a))
+        comps = {m: [float(distributed.term_sharded_component(
+            lam, mu[j], i, meshes[m])) for i, j in pairs]
+            for m in ("1x1", "1x2")}
+        one = tables["1x1"].double().cpu().numpy()
+        for m in ("1x1", "1x2"):
+            # repro's tolerances (tests/test_system.py:98-116): the table
+            # against the 1x1 table and eigh, the term components against
+            # the 1x1 ones and the table's entries; and the components
+            # against eigh (float32: within the 2e-3 component bound of
+            # tests/test_torch_parity.py).
+            got = tables[m].double().cpu().numpy()
+            check(got.shape == (64, 64)
+                  and np.allclose(got, one, rtol=1e-4, atol=1e-5)
+                  and np.allclose(got, mags_ref, rtol=1e-4, atol=1e-5),
+                  f"minor axis {m} {name}: off by "
+                  f"{np.abs(got - mags_ref).max():.3e} from eigh, "
+                  f"{np.abs(got - one).max():.3e} from 1x1")
+            comp = np.array(comps[m])
+            check(np.allclose(comp, comps["1x1"], rtol=1e-4)
+                  and np.allclose(comp, [one[i, j] for i, j in pairs],
+                                  rtol=1e-4)
+                  and np.allclose(comp, ref, **(
+                      dict(rtol=1e-4) if name == "float64"
+                      else dict(rtol=0.0, atol=2e-3))),
+                  f"term axis {m} {name}: {comps[m]} vs eigh {ref}")
+        print(f"[sharded] minor axis (1x2, n = 64, {name}): max error "
+              f"{np.abs(tables['1x2'].double().cpu().numpy() - mags_ref).max():.3e}"
+              f" from eigh, {_max_diff(torch, tables['1x2'], tables['1x1']):.3e}"
+              f" from 1x1; term axis (1x2) at {pairs}: {comps['1x2']}, "
+              f"relative error from eigh "
+              f"{float(np.abs(np.array(comps['1x2']) / ref - 1).max()):.3e}")
+
+    # 5. The ladder on the card, float64.
+    for n, scale, pairs in ((12, 1.0, ((0, 0), (6, 11), (11, 0))),
+                            (200, 10.0, ((100, 0),))):
+        rng = np.random.default_rng(0)
+        a_np = rng.standard_normal((n, n)) * scale
+        a_np = (a_np + a_np.T) / 2
+        _, v = np.linalg.eigh(a_np)
+        a = torch.as_tensor(a_np, device=dev)
+        for variant in identity.VARIANTS:
+            for i, j in pairs:
+                got = float(identity.component(a, i, j, variant=variant,
+                                               batch_size=3 if n == 12
+                                               else 64))
+                ref = v[j, i] ** 2
+                if n == 200 and variant in ("baseline", "cached",
+                                            "vectorized"):
+                    check(not np.isfinite(got), f"ladder n=200 {variant}: "
+                          f"{got} (the unpaired products must overflow)")
+                    continue
+                rtol, atol = (1e-8, 1e-12) if n == 12 else (1e-6, 0.0)
+                check(abs(got - ref) <= atol + rtol * abs(ref),
+                      f"ladder n={n} {variant} ({i}, {j}): {got} vs eigh "
+                      f"{ref}")
+        print(f"[sharded] ladder n={n}{' (x10)' if scale > 1 else ''}: every "
+              f"variant within repro's tolerance of eigh"
+              + ("" if n == 12 else "; baseline, cached and vectorized "
+                 "overflow, as repro's test requires"))
+    from repro_torch.core import numpy_ref
+
+    rng = np.random.default_rng(1)
+    a_np = rng.standard_normal((N, N))
+    a_np = (a_np + a_np.T) / 2
+    a = torch.as_tensor(a_np, device=dev)
+    i, j = N - 1, 0
+    times = {}
+    for variant in identity.VARIANTS:
+        def one(variant=variant):
+            out = identity.component(a, i, j, variant=variant)
+            torch.cuda.synchronize()
+            return out
+        times[variant] = _wall_ms(torch, one)
+    host = {"numpy_full_eigh": lambda: numpy_ref.numpy_full_eigh(a_np),
+            "eigen_component_optimized": lambda:
+            numpy_ref.eigen_component_optimized(a_np, i, j)}
+    for what, fn in host.items():
+        times[f"host {what}"] = _wall_ms(torch, fn)
+    print(f"[timing] the ladder at n = {N} (one component ({i}, {j}), float64,"
+          f" median of 3 wall ms; {card}; host: numpy on this machine's "
+          f"CPU): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"[timing] the sharded phase took {time.perf_counter() - t_phase:.1f}"
+          f" s with its checks ({card})")
+    return launches
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

@@ -4,10 +4,13 @@ The JAX package ``repro`` is the reference and stays beside it; this
 package imports ``torch`` and numpy, never ``jax`` or ``repro``.  Its
 layout mirrors ``repro``'s: ``linalg`` and ``core`` hold plain PyTorch,
 ``kernels`` the hand-written CUDA kernels beside their plain versions, and
-``engine`` the ``SolverEngine``.
+``engine`` the ``SolverEngine``, its serving runtime and the ``sharded``
+backend on a device mesh (``launch.mesh``, ``core.distributed``).
 """
 
 from repro_torch.engine import (  # noqa: F401
+    EeiServer,
+    Mesh,
     PackedTopkResult,
     Rank1Update,
     SessionConfig,
@@ -18,6 +21,7 @@ from repro_torch.engine import (  # noqa: F401
     SpectralSession,
     TopkResult,
     VerifyFlags,
+    make_local_mesh,
     packed_plan_for,
     packed_topk_program,
     plan_for,

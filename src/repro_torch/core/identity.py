@@ -1,18 +1,29 @@
-"""The Eigenvector-Eigenvalue Identity (EEI), log-space part.
+"""The Eigenvector-Eigenvalue Identity (EEI), all its variants.
 
 For a symmetric ``n x n`` ``A`` with eigenvalues ``lam`` (ascending) and
 minors ``M_j`` with eigenvalues ``mu[j, :]``:
 
     |v[i, j]|^2 * prod_{k != i} (lam[i] - lam[k]) = prod_k (lam[i] - mu[j, k])
 
-The plain PyTorch twin of the log-space functions of ``repro.core.identity``
+The plain PyTorch twin of ``repro.core.identity``: the log-space tables
 (sums of ``log|diff|``, immune to over- and underflow), batched over
-leading axes.  The paper's ``component_*`` variant ladder waits for a later
-slice; the spectra of ``A`` and of its dense minors
-(:func:`matrix_spectrum`, :func:`minor_spectra`) are LAPACK's, as in
-``repro``.  Numerator tables are built in row chunks so the ``(..., i, j, k)``
-difference tensor never exists whole: at ``b = 16, n = 600`` it would be
-27.6 GB in float64.
+leading axes, the windowed minor determinants, and the paper's ladder of
+single-component variants (Fig. 1(c)/(d)):
+
+    baseline     Algorithm 1: recomputes both spectra for every component.
+    cached       spectra once, scalar Python-loop products.
+    vectorized   spectra once, tensor products.
+    batched      Algorithm 2: paired numerator / denominator terms in
+                 batches, per-batch ratios multiplied (no overflow at
+                 n >~ 150).
+    parallel     Algorithm 2 with the batches' ratios as one batched
+                 product (the paper's thread-pool dispatch).
+    logspace     sums of ``log|diff|``.
+
+The spectra of ``A`` and of its dense minors (:func:`matrix_spectrum`,
+:func:`minor_spectra`) are LAPACK's, as in ``repro``.  Numerator tables are
+built in row chunks so the ``(..., i, j, k)`` difference tensor never
+exists whole: at ``b = 16, n = 600`` it would be 27.6 GB in float64.
 """
 
 from __future__ import annotations
@@ -52,6 +63,23 @@ def spectral_floor(lam: torch.Tensor) -> torch.Tensor:
     """Per-matrix gap clamp ``eps * (max(|lam_0|, |lam_-1|) + 1e-30)``."""
     scale = torch.maximum(lam[..., -1].abs(), lam[..., 0].abs()) + 1e-30
     return torch.finfo(lam.dtype).eps * scale
+
+
+def denominator_products(lam: torch.Tensor) -> torch.Tensor:
+    """``prod_{k != i} (lam[i] - lam[k])`` for every ``i``, ``(..., n)``."""
+    n = lam.shape[-1]
+    diff = lam.unsqueeze(-1) - lam.unsqueeze(-2)
+    eye = torch.eye(n, dtype=torch.bool, device=lam.device)
+    return torch.where(eye, 1.0, diff).prod(dim=-1)
+
+
+def numerator_products(lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """``prod_k (lam[i] - mu[j, k])``: ``lam (..., I)``, ``mu (..., J, K)``
+    -> ``(..., I, J)``."""
+    def block(rows):
+        return (rows[..., :, None, None] - mu.unsqueeze(-3)).prod(dim=-1)
+
+    return _row_chunks(lam, mu, block)
 
 
 def logabs_denominator(lam: torch.Tensor) -> torch.Tensor:
@@ -138,19 +166,27 @@ def logabs_numerator_dot(lam: torch.Tensor, mu: torch.Tensor,
 
 
 def magnitudes_from_spectra(lam: torch.Tensor, mu: torch.Tensor,
-                            reduce: str = "sum", rows=None) -> torch.Tensor:
-    """All ``|v[i, j]|^2`` from spectra, ``(..., n, n)``, in log space.
+                            logspace: bool = True, reduce: str = "sum",
+                            rows=None) -> torch.Tensor:
+    """All ``|v[i, j]|^2`` from spectra, ``(..., n, n)``.
 
-    ``lam (..., n)`` ascending, ``mu (..., n, n-1)``.  ``reduce="dot"``
-    takes the ones-contraction forms.  Gaps are clamped at ``eps *
-    spectral scale``.  ``rows`` (``(k,)`` eigenvalue indices, shared across
-    the stack) evaluates only those rows of the numerator; the floor and
-    the denominator still come from the full spectrum and are row-sliced,
-    so the ``(..., k, n)`` result equals the matching rows of the table.
+    ``lam (..., n)`` ascending, ``mu (..., n, n-1)``.  In log space
+    (the default) ``reduce="dot"`` takes the ones-contraction forms and
+    gaps are clamped at ``eps * spectral scale``; ``logspace=False`` divides
+    the plain products (over- and underflows at large ``n``).  ``rows``
+    (``(k,)`` eigenvalue indices, shared across the stack) evaluates only
+    those rows of the numerator; the floor and the denominator still come
+    from the full spectrum and are row-sliced, so the ``(..., k, n)``
+    result equals the matching rows of the table.
     """
     if reduce not in ("sum", "dot"):
         raise ValueError(f"unknown reduce {reduce!r}")
     lam_rows = lam if rows is None else lam[..., rows]
+    if not logspace:
+        den = denominator_products(lam)
+        if rows is not None:
+            den = den[..., rows]
+        return numerator_products(lam_rows, mu) / den.unsqueeze(-1)
     floor = spectral_floor(lam)
     if reduce == "dot":
         log_num = logabs_numerator_dot(lam_rows, mu, floor=floor)
@@ -229,3 +265,164 @@ def tridiag_windowed_magnitudes(d: torch.Tensor, e: torch.Tensor,
 
 # Batch axes are written out, so the batched name is the same function.
 tridiag_windowed_magnitudes_batched = tridiag_windowed_magnitudes
+
+
+# ---------------------------------------------------------------------------
+# The paper's ladder: one component |v[i, j]|^2 per call
+# ---------------------------------------------------------------------------
+
+
+def component_baseline(a: torch.Tensor, i: int, j: int) -> torch.Tensor:
+    """Algorithm 1 of the paper: both spectra recomputed per call, scalar
+    Python loops.  Deliberately naive: the baseline of the ladder."""
+    n = a.shape[-1]
+    lam = torch.linalg.eigvalsh(a)
+    mu = torch.linalg.eigvalsh(minors_lib.minor(a, j))
+    numerator = torch.ones((), dtype=a.dtype, device=a.device)
+    for k in range(n - 1):
+        numerator = numerator * (lam[i] - mu[k])
+    denominator = torch.ones((), dtype=a.dtype, device=a.device)
+    for k in range(n):
+        if k != i:
+            denominator = denominator * (lam[i] - lam[k])
+    return numerator / denominator
+
+
+def component_cached(lam: torch.Tensor, mu_j: torch.Tensor,
+                     i: int) -> torch.Tensor:
+    """Spectra precomputed, Python-loop products (the paper's first
+    improvement)."""
+    n = lam.shape[-1]
+    numerator = torch.ones((), dtype=lam.dtype, device=lam.device)
+    for k in range(n - 1):
+        numerator = numerator * (lam[i] - mu_j[k])
+    denominator = torch.ones((), dtype=lam.dtype, device=lam.device)
+    for k in range(n):
+        if k != i:
+            denominator = denominator * (lam[i] - lam[k])
+    return numerator / denominator
+
+
+def component_vectorized(lam: torch.Tensor, mu_j: torch.Tensor,
+                         i: int) -> torch.Tensor:
+    """Tensor products over ``k`` (the paper's vectorized variant).
+    ``mu_j (..., n-1)``: leading axes give one component each."""
+    n = lam.shape[-1]
+    numer = (lam[i] - mu_j).prod(dim=-1)
+    keep = torch.arange(n, device=lam.device) == i
+    return numer / torch.where(keep, 1.0, lam[i] - lam).prod()
+
+
+def _paired_terms(lam: torch.Tensor, mu_j: torch.Tensor, i: int):
+    """The ``n-1`` paired numerator and denominator terms of Algorithm 2:
+    its line 6 deletes ``lam[i]`` from the spectrum so that both products
+    have ``n-1`` terms."""
+    lam_wo_i = minors_lib.delete_index(lam, i)
+    return lam[i] - mu_j, lam[i] - lam_wo_i
+
+
+def _batch_products(lam, mu_j, i, batch_size: int):
+    """Per-batch products ``(nb,)`` of the paired numerator and denominator
+    terms, padded with 1.0 to ``nb * batch_size``: one product over the
+    ``(nb, batch_size)`` view of each."""
+    numer_terms, denom_terms = _paired_terms(lam, mu_j, i)
+    pad = (-numer_terms.shape[-1]) % batch_size
+    ones = torch.ones(pad, dtype=lam.dtype, device=lam.device)
+    numer_terms = torch.cat([numer_terms, ones])
+    denom_terms = torch.cat([denom_terms, ones])
+    nb = numer_terms.shape[-1] // batch_size
+    return (numer_terms.view(nb, batch_size).prod(dim=-1),
+            denom_terms.view(nb, batch_size).prod(dim=-1))
+
+
+def component_batched(lam: torch.Tensor, mu_j: torch.Tensor, i: int,
+                      batch_size: int = 64) -> torch.Tensor:
+    """Algorithm 2: per-batch partial ratios, multiplied.
+
+    Pairing each numerator term with a denominator term keeps every partial
+    ratio O(1) in magnitude (interlacing makes paired terms comparable),
+    which fixes the paper's overflow at ``n >~ 150``.
+    """
+    num_b, den_b = _batch_products(lam, mu_j, i, batch_size)
+    return (num_b / den_b).prod()
+
+
+def component_parallel(lam: torch.Tensor, mu_j: torch.Tensor, i: int,
+                       batch_size: int = 64) -> torch.Tensor:
+    """Algorithm 2 with the batch dispatch as one batched product over the
+    ``(nb, batch_size)`` view: each row is one dispatched batch (the paper's
+    thread pool; ``repro``'s ``vmap`` lanes).  The same arithmetic as
+    :func:`component_batched`, as in ``repro``."""
+    num_b, den_b = _batch_products(lam, mu_j, i, batch_size)
+    ratios = num_b / den_b
+    return ratios.prod()
+
+
+def component_logspace(lam: torch.Tensor, mu_j: torch.Tensor, i: int,
+                       eps: float | None = None) -> torch.Tensor:
+    """Log-domain EEI, immune to over- and underflow at any ``n``.
+
+    Cauchy interlacing makes the sign non-negative, so only ``log|diff|``
+    is needed.  Degenerate gaps are clamped at ``eps * scale``.
+    ``mu_j (..., n-1)``: leading axes give one component each.
+    """
+    n = lam.shape[-1]
+    scale = torch.maximum(lam[-1].abs(), lam[0].abs()) + 1e-30
+    if eps is None:
+        eps = torch.finfo(lam.dtype).eps
+    floor = eps * scale
+    numer = torch.log(torch.maximum((lam[i] - mu_j).abs(), floor)).sum(dim=-1)
+    keep = torch.arange(n, device=lam.device) == i
+    denom = torch.log(torch.where(
+        keep, 1.0, torch.maximum((lam[i] - lam).abs(), floor))).sum()
+    return torch.exp(numer - denom)
+
+
+def eigenvector_magnitudes(a: torch.Tensor, i: int,
+                           logspace: bool = True) -> torch.Tensor:
+    """``|v[i, :]|^2``: one eigenvector's component magnitudes, ``(n,)``."""
+    lam = matrix_spectrum(a)
+    mu = minor_spectra(a)
+    fn = component_logspace if logspace else component_vectorized
+    return fn(lam, mu, i)
+
+
+def eigenmatrix_magnitudes(a: torch.Tensor,
+                           logspace: bool = True) -> torch.Tensor:
+    """``|v[i, j]|^2`` for all ``(i, j)``, rows are eigenvectors."""
+    return magnitudes_from_spectra(matrix_spectrum(a), minor_spectra(a),
+                                   logspace=logspace)
+
+
+def component(a: torch.Tensor, i: int, j: int, variant: str = "logspace",
+              batch_size: int = 64) -> torch.Tensor:
+    """One component ``|v[i, j]|^2`` of ``a (n, n)`` by a named variant."""
+    if variant == "baseline":
+        return component_baseline(a, i, j)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
+    lam = matrix_spectrum(a)
+    mu_j = torch.linalg.eigvalsh(minors_lib.minor(a, j))
+    if variant in ("batched", "parallel"):
+        return VARIANTS[variant](lam, mu_j, i, batch_size)
+    return VARIANTS[variant](lam, mu_j, i)
+
+
+VARIANTS = {
+    "baseline": component_baseline,
+    "cached": component_cached,
+    "vectorized": component_vectorized,
+    "batched": component_batched,
+    "parallel": component_parallel,
+    "logspace": component_logspace,
+}
+
+
+def component_jit(a: torch.Tensor, i: int, j: int, variant: str = "logspace",
+                  batch_size: int = 64) -> torch.Tensor:
+    """``repro``'s jitted single-component entry point, under its name.
+
+    PyTorch runs eagerly and the port builds no per-shape program, so this
+    is :func:`component`, every variant included.
+    """
+    return component(a, i, j, variant=variant, batch_size=batch_size)

@@ -17,17 +17,27 @@ def _kept(n: int, j: torch.Tensor) -> torch.Tensor:
     return p + (p >= j).to(p.dtype)
 
 
+def delete_index(x: torch.Tensor, j: int) -> torch.Tensor:
+    """``x (..., n)`` without element ``j`` of its last axis."""
+    return x[..., _kept(x.shape[-1], torch.as_tensor(j, device=x.device))]
+
+
 def minor(a: torch.Tensor, j: int) -> torch.Tensor:
     """Principal minor of ``a (..., n, n)`` without row and column ``j``."""
     sel = _kept(a.shape[-1], torch.as_tensor(j, device=a.device))
     return a[..., sel, :][..., :, sel]
 
 
+def minor_stack(a: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """The principal minors of ``a (..., n, n)`` listed in ``j (J,)``:
+    ``(..., J, n-1, n-1)``."""
+    sel = _kept(a.shape[-1], j.unsqueeze(-1))  # (J, n-1)
+    return a[..., sel.unsqueeze(-1), sel.unsqueeze(-2)]
+
+
 def all_minors(a: torch.Tensor) -> torch.Tensor:
     """All ``n`` principal minors, ``(..., n, n-1, n-1)`` (O(n^3) memory)."""
-    n = a.shape[-1]
-    sel = _kept(n, torch.arange(n, device=a.device).unsqueeze(-1))  # (n, n-1)
-    return a[..., sel.unsqueeze(-1), sel.unsqueeze(-2)]
+    return minor_stack(a, torch.arange(a.shape[-1], device=a.device))
 
 
 def _minor_bands(d: torch.Tensor, e: torch.Tensor, j: torch.Tensor):

@@ -20,6 +20,10 @@
 
     with EeiFleet(3) as fleet:                      # replicas of the server
         fut = fleet.submit(a, k=8)                  # routed, failed over
+
+    mesh = make_local_mesh(2, 1)                    # two cards' data axis
+    plan = plan_for(stack.shape, k=8, mesh=mesh)    # backend "sharded"
+    EeiServer(mesh=mesh)                            # buckets round up to 2
 """
 
 from repro_torch.engine.autotune import (  # noqa: F401
@@ -29,6 +33,7 @@ from repro_torch.engine.autotune import (  # noqa: F401
     load_table,
     set_table,
 )
+from repro_torch.launch.mesh import Mesh, make_local_mesh  # noqa: F401
 from repro_torch.engine.plan import (  # noqa: F401
     BackendName,
     Method,

@@ -1,4 +1,5 @@
-"""Default stage libraries (reference, torch, cuda) and compositions.
+"""Default stage libraries (reference, torch, cuda, sharded) and
+compositions.
 
     reference   straightforward PyTorch: unfused log-space sums and the
                 plain Sturm bisection.  The oracle the others are held to.
@@ -12,6 +13,8 @@
                 update) and the prod-diff numerator table (whole, or only
                 the k selected rows).  On CPU tensors
                 the kernel wrappers run their plain versions.
+    sharded     the cuda stages split over the batch axis of a device mesh
+                (``core.distributed``).
 
 The Householder reduce, the Lanczos reduce, the dense ``eigvalsh`` (in
 float64 for a float32 stack on the card, see :func:`_card_float64`), the
@@ -230,10 +233,17 @@ def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
     })
 
 
+def _sharded_factory(plan: SolverPlan) -> StageLibrary:
+    from repro_torch.core.distributed import make_sharded_backend
+
+    return make_sharded_backend(plan)
+
+
 def register_default_backends() -> None:
     register_backend("reference", make_reference_backend)
     register_backend("torch", make_torch_backend)
     register_backend("cuda", make_cuda_backend)
+    register_backend("sharded", _sharded_factory)
 
 
 # Shared stage signatures.

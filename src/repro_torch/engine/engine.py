@@ -14,7 +14,10 @@ Built programs are cached per :class:`ProgramSpec`; PyTorch runs eagerly,
 so there is nothing to compile.
 
 The engine runs on the card unless the caller asks for another device: with
-no ``device`` it takes ``cuda`` and raises where there is none.
+no ``device`` it takes ``cuda`` and raises where there is none.  Under a
+``sharded`` plan it runs on the mesh's first device (the stages move each
+shard to its own), and the stack is padded up to a multiple of the mesh's
+batch axis and sliced back.
 """
 
 from __future__ import annotations
@@ -652,6 +655,17 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _same_device(x: torch.device, y: torch.device) -> bool:
+    """``cuda`` and ``cuda:<current>`` name one device."""
+    if x.type != y.type:
+        return False
+    if x.type != "cuda" or (x.index is not None and y.index is not None):
+        return x == y
+    current = torch.cuda.current_device()
+    return ((current if x.index is None else x.index)
+            == (current if y.index is None else y.index))
+
+
 def _map(fn, out):
     if isinstance(out, tuple):
         return type(out)(*(fn(x) for x in out))
@@ -672,6 +686,15 @@ class SolverEngine:
     device: Optional[torch.device] = None
 
     def __post_init__(self):
+        if self.plan.backend == "sharded":
+            first = self.plan.mesh.first_device
+            if self.device is not None and not _same_device(
+                    torch.device(self.device), first):
+                raise ValueError(
+                    f"a sharded plan runs on its mesh's first device "
+                    f"{first}, not {self.device}")
+            object.__setattr__(self, "device", first)
+            return
         object.__setattr__(self, "device", _resolve_device(self.device))
 
     def solve(self, a) -> SolveResult:
@@ -743,8 +766,13 @@ class SolverEngine:
         return _map(lambda x: x[0], out) if squeeze else out
 
     def _run_chunk(self, prog: Program, a: torch.Tensor, pad_to: int = 0):
+        # Pad up to `pad_to` (a microbatched run's tail) and to a multiple of
+        # the mesh's batch axis (the sharded stages split the stack evenly)
+        # with copies of the first matrix; slice back after.
         b = a.shape[0]
-        pad = max(b, pad_to) - b
+        target = max(b, pad_to)
+        target += (-target) % self.plan.batch_axis_size
+        pad = target - b
         if pad:
             a = torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
         out = prog(a)

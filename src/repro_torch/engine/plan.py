@@ -5,9 +5,13 @@ The twin of ``repro.engine.plan`` with the port's backend names:
     method        eigh | eei_dense | eei_tridiag | eei_krylov | eei_krylov_si
     spectrum      full | windowed   (the full-spectrum top-k chain, or the
                   k-windowed chain that computes only the selected rows)
-    backend       reference | torch | cuda   (the twins of repro's
-                  reference | jnp | pallas: straightforward PyTorch, fused
-                  PyTorch reductions, and the hand-written CUDA kernels)
+    backend       reference | torch | cuda | sharded   (the twins of
+                  repro's reference | jnp | pallas | sharded:
+                  straightforward PyTorch, fused PyTorch reductions, the
+                  hand-written CUDA kernels, and the cuda stages split over
+                  the batch axis of a device mesh)
+    mesh          the ``launch.mesh.Mesh`` of a sharded plan, with its
+                  ``batch_axis`` (the stack's) and ``minor_axis``
     precision     None (keep the input dtype) | "float32" | "float64"
     bisect_iters  Sturm bisection iterations (0 -> dtype default)
     max_batch     microbatch bound for long stacks (0 -> no bound)
@@ -25,15 +29,18 @@ default was measured on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import TYPE_CHECKING, Literal, Optional
+
+if TYPE_CHECKING:
+    from repro_torch.launch.mesh import Mesh
 
 Method = Literal[
     "eigh", "eei_dense", "eei_tridiag", "eei_krylov", "eei_krylov_si"]
-BackendName = Literal["reference", "torch", "cuda"]
+BackendName = Literal["reference", "torch", "cuda", "sharded"]
 Spectrum = Literal["full", "windowed"]
 
 METHODS = ("eigh", "eei_dense", "eei_tridiag", "eei_krylov", "eei_krylov_si")
-BACKENDS = ("reference", "torch", "cuda")
+BACKENDS = ("reference", "torch", "cuda", "sharded")
 
 #: ``n`` at or below which a full ``eigh`` beats any EEI pipeline.
 EIGH_CROSSOVER_N = 24
@@ -70,8 +77,10 @@ def _measured(field: str, fallback):
 
 def resolved_crossovers(backend: Optional[str] = None) -> tuple:
     """``(eigh_crossover_n, dense_crossover_n)`` the planner dispatches on:
-    the calibration table's pair for ``backend`` (``cuda`` has its own), or
-    :data:`EIGH_CROSSOVER_N`, :data:`DENSE_CROSSOVER_N` with no table."""
+    the calibration table's pair for ``backend`` (``cuda`` has its own;
+    ``sharded``, like every other backend, reads the ``torch`` pair, as
+    ``repro``'s reads its ``jnp`` pair), or :data:`EIGH_CROSSOVER_N`,
+    :data:`DENSE_CROSSOVER_N` with no table."""
     from repro_torch.engine import autotune
 
     table = autotune.get_table()
@@ -140,6 +149,9 @@ class SolverPlan:
     method: Method = "eei_tridiag"
     backend: BackendName = "cuda"
     spectrum: Spectrum = "full"
+    mesh: Optional["Mesh"] = None
+    batch_axis: str = "data"
+    minor_axis: Optional[str] = "model"
     precision: Optional[str] = None  # None -> keep input dtype
     bisect_iters: int = 0  # 0 -> dtype default
     max_batch: int = 0  # 0 -> solve the whole stack at once
@@ -154,19 +166,35 @@ class SolverPlan:
             raise ValueError(f"unknown spectrum {self.spectrum!r}")
         if self.precision not in (None, "float32", "float64"):
             raise ValueError(f"unknown precision {self.precision!r}")
+        if self.backend == "sharded":
+            if self.mesh is None:
+                raise ValueError("backend='sharded' requires a mesh")
+            if self.batch_axis not in self.mesh.axis_names:
+                raise ValueError(
+                    f"batch_axis {self.batch_axis!r} not in mesh axes "
+                    f"{self.mesh.axis_names}")
+
+    @property
+    def batch_axis_size(self) -> int:
+        """Devices along the batch (data) axis; 1 for unsharded backends."""
+        if self.backend != "sharded" or self.mesh is None:
+            return 1
+        return self.mesh.shape[self.batch_axis]
 
 
 def plan_for(
     shape: tuple,
     *,
     k: Optional[int] = None,
+    mesh: Optional["Mesh"] = None,
     method: Optional[Method] = None,
     backend: Optional[BackendName] = None,
     spectrum: Optional[Spectrum] = None,
     precision: Optional[str] = None,
     bisect_iters: int = 0,
 ) -> SolverPlan:
-    """Pick a plan from the problem shape ``(n, n)`` or ``(b, n, n)``.
+    """Pick a plan from the problem shape ``(n, n)`` or ``(b, n, n)`` and
+    the device mesh.
 
     ``k`` is the number of eigenpairs the caller will ask for (``None``: the
     full table).  Explicit keywords override the heuristics:
@@ -180,14 +208,25 @@ def plan_for(
     * a window with ``k <= resolved_windowed_k_frac() * n`` plans the
       windowed chain.
 
-    The crossovers are the backend's (:func:`resolved_crossovers`); the
-    backend defaults to ``cuda``, the hand-written kernels.
+    The crossovers are the backend's (:func:`resolved_crossovers`).  A
+    ``mesh`` whose ``data`` axis has more than one device picks the
+    ``sharded`` backend when the stack puts at least one matrix on each of
+    them (the engine and the server pad a stack up to a multiple of the
+    axis); otherwise the mesh is dropped and the backend defaults to
+    ``cuda``, the hand-written kernels.
     """
     if len(shape) not in (2, 3):
         raise ValueError(f"expected (n, n) or (b, n, n), got {shape}")
     n = shape[-1]
+    b = shape[0] if len(shape) == 3 else 1
     if backend is None:
-        backend = "cuda"
+        if (mesh is not None and "data" in mesh.axis_names
+                and mesh.shape["data"] > 1 and b >= mesh.shape["data"]):
+            backend = "sharded"
+        else:
+            backend = "cuda"
+    if backend != "sharded":
+        mesh = None
     if method is None:
         eigh_x, dense_x = resolved_crossovers(backend)
         if n <= eigh_x or (k is not None and k >= n):
@@ -205,7 +244,11 @@ def plan_for(
         if (method != "eigh" and k is not None and 0 < k < n
                 and k <= resolved_windowed_k_frac() * n):
             spectrum = "windowed"
+    minor_axis = None
+    if mesh is not None and "model" in mesh.axis_names:
+        minor_axis = "model"
     return SolverPlan(method=method, backend=backend, spectrum=spectrum,
+                      mesh=mesh, batch_axis="data", minor_axis=minor_axis,
                       precision=precision, bisect_iters=bisect_iters)
 
 

@@ -55,8 +55,11 @@ window and the A-block eigenpairs are preserved exactly (the padded block
 decouples at an exactly-zero junction).
 
 The server runs on ``device``: the card unless the caller names another,
-and with no card it raises, as ``SolverEngine`` does.  The sharded mesh of
-``repro``'s server is not part of the port.
+and with no card it raises, as ``SolverEngine`` does.  With a ``mesh``
+(``EeiServer(mesh=)``) each bucket plans with it, so a stack that puts a
+matrix on every device of the mesh's data axis takes the ``sharded``
+backend, and its pow2 bucket rounds up to a multiple of that axis; the
+server then runs on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -409,9 +412,13 @@ class EeiServer:
     drains inline instead), ``'except'`` raises :class:`QueueFull`.
 
     ``plan`` pins one :class:`SolverPlan` for every bucket; by default each
-    bucket gets ``plan_for((b, n, n), k=...)``, so small buckets may route
-    to ``eigh`` and larger ones to the EEI chains.  ``device`` is where the
-    stacks run: the card by default (no card: ``RuntimeError``).
+    bucket gets ``plan_for((b, n, n), k=..., mesh=mesh)``, so small buckets
+    may route to ``eigh`` and larger ones to the EEI chains, and, with a
+    ``mesh`` whose data axis holds more than one device, stacks at least
+    that large to the ``sharded`` backend (buckets round up to the axis).
+    ``device`` is where the stacks run: the card by default (no card:
+    ``RuntimeError``), the mesh's first device with a mesh or a sharded
+    ``plan`` (another ``device`` is refused).
 
     **Fault tolerance** (on by default): ``verify=True`` appends the
     engine's ``verify`` stage to every bucket program, so each row is
@@ -430,6 +437,7 @@ class EeiServer:
         plan: Optional[SolverPlan] = None,
         *,
         device=None,
+        mesh=None,
         max_batch: int = 64,
         max_inflight: int = 2,
         n_align: int = N_ALIGN,
@@ -473,8 +481,18 @@ class EeiServer:
                 f"pack_row_n must be >= n_align ({n_align}), got {pack_row_n}")
         if pack_k < 1:
             raise ValueError(f"pack_k must be >= 1, got {pack_k}")
+        for m in (mesh, plan.mesh if plan is not None else None):
+            if m is None:
+                continue
+            if device is not None and not engine_mod._same_device(
+                    torch.device(device), m.first_device):
+                raise ValueError(
+                    f"a server on a mesh runs on its first device "
+                    f"{m.first_device}, not {device}")
+            device = m.first_device
         self.device = engine_mod._resolve_device(device)
         self._plan = plan
+        self._mesh = mesh
         # Stack buckets are powers of two, so a non-pow2 bound would round
         # *up* past the operator's limit: floor it (48 serves stacks of 32).
         self.max_batch = 1 << (max_batch.bit_length() - 1)
@@ -741,7 +759,14 @@ class EeiServer:
         # runs under two plans.
         plan = self._plan
         if plan is None:
-            plan = plan_for((bucket.b, bucket.n, bucket.n), k=bucket.k)
+            plan = plan_for((bucket.b, bucket.n, bucket.n), k=bucket.k,
+                            mesh=self._mesh)
+        # The sharded stages split the stack evenly over the mesh's batch
+        # axis (SolverEngine._run_chunk pads for the same reason): round the
+        # pow2 bucket up to the next multiple.
+        mult = plan.batch_axis_size
+        if bucket.b % mult:
+            bucket = bucket._replace(b=bucket.b + (-bucket.b) % mult)
         return bucket, plan
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
@@ -1316,7 +1341,7 @@ class EeiServer:
         plan = self._plan
         if plan is None:
             bn = _bucket_n(n, self.n_align)
-            plan = plan_for((1, bn, bn), k=k)
+            plan = plan_for((1, bn, bn), k=k, mesh=self._mesh)
         return plan
 
     def open_session(self, a, k: int, largest: bool = True,

@@ -228,6 +228,12 @@ def _full_resolve(engine, session, a_new, cause: str) -> None:
     _commit_resolve(session, a_new, res, cause)
 
 
+def _pad_batch(engine, x: torch.Tensor) -> torch.Tensor:
+    """Lift session state to the program's batch shape: one row, repeated
+    up to the mesh's batch axis under a sharded plan."""
+    return x[None].expand((engine.plan.batch_axis_size,) + x.shape)
+
+
 def _normalize_deltas(delta):
     if isinstance(delta, Rank1Update):
         return [delta]
@@ -283,14 +289,16 @@ def _apply_rank1(engine, session, upd: Rank1Update) -> None:
         _full_resolve(engine, session, a_new, cause=cause)
         return
 
-    # Fast path: the warm-started update program on a batch of one.
+    # Fast path: the warm-started update program on a batch of one, lifted
+    # to the mesh's batch axis under a sharded plan; row 0 is the session's.
     prog = update_program(engine.plan, session.k, session.largest,
                           session.m_keep, session.n_aug)
     u_hat = u / torch.sqrt(nrm2_t)
-    rho_t = torch.full((1,), rho, dtype=session.dtype, device=session.device)
-    result, flags, a_new, basis, theta = prog(
-        session.a[None], session.basis[None], session.theta[None],
-        u_hat[None], rho_t)
+    padded = [_pad_batch(engine, x) for x in
+              (session.a, session.basis, session.theta, u_hat)]
+    rho_t = torch.full((padded[0].shape[0],), rho, dtype=session.dtype,
+                       device=session.device)
+    result, flags, a_new, basis, theta = prog(*padded, rho_t)
 
     # Drift monitor, leg 3: verification of the fast answer.
     if cfg.verify and not bool(flags.ok[0]):

@@ -5,7 +5,7 @@
         [--gap-ms 1] [--pack auto|never|always] \
         [--spectrum auto|full|windowed] [--chaos SEED] [--chaos-rate 0.05] \
         [--replicas 3 [--replica-mode subprocess] [--chaos-replicas]] \
-        [--device cpu]
+        [--mesh 2x1 [--sharded]] [--device cpu]
 
 The twin of ``python -m repro.launch.serve --eei``.  ``--mixed`` samples
 ``n`` and ``k`` per request (the heterogeneous stream the server buckets);
@@ -21,13 +21,17 @@ probes, failover redispatch, restart); ``--replica-mode subprocess`` runs
 each replica in a worker process of its own, and ``--chaos-replicas`` arms
 the replica-level kill / hang / slow points (at ``--chaos-rate``, seeded by
 ``--chaos``), so replicas die mid-stream while every request must still
-resolve.  The stream is made before the timed region.
+resolve.  ``--mesh DxM`` serves on a mesh of the first ``D*M`` cards (with
+``--device``, that device repeated ``D*M`` times: ``--device cpu``, or
+``--device cuda:0`` for a logical mesh on one card): buckets of at least
+``D`` requests take the sharded backend, rounded up to a multiple of ``D``;
+``--sharded`` pins it (and needs ``D >= 2``).  The stream is made before
+the timed region.
 
 The server (every replica's, with ``--replicas``) runs on the card unless
 ``--device`` names another device; with no card and no ``--device`` it
-refuses to run.  Not ported yet, and refused when asked for: the sharded
-serve path (``--sharded``, ``--mesh``) and the language-model path
-(``--arch``).
+refuses to run.  Not ported yet, and refused when asked for: the
+language-model path (``--arch``).
 """
 
 from __future__ import annotations
@@ -45,8 +49,6 @@ log = logging.getLogger("repro_torch.serve")
 #: dest -> (the feature, the values that ask for nothing beyond one server
 #: on one device).
 _UNPORTED = {
-    "sharded": ("the sharded serve path", (False,)),
-    "mesh": ("the sharded serve path", (None, "1x1")),
     "arch": ("the language-model path", (None,)),
 }
 
@@ -64,12 +66,17 @@ def serve_eei(args):
         resolved_crossovers,
     )
     from repro_torch.engine.server import make_eei_stream
+    from repro_torch.launch.mesh import mesh_axes, parse_mesh
 
     if args.calibration:
         autotune.set_table(autotune.load_table(args.calibration))
     table = autotune.get_table()
 
-    plan = plan_for((args.batch, args.n, args.n), k=args.k,
+    data, model = mesh_axes(args.mesh)
+    serve_mesh = (parse_mesh(args.mesh, args.device) if data * model > 1
+                  else None)
+    plan = plan_for((args.batch, args.n, args.n), k=args.k, mesh=serve_mesh,
+                    backend="sharded" if args.sharded else None,
                     spectrum=None if args.spectrum == "auto" else
                     args.spectrum)
     eigh_x, dense_x = resolved_crossovers(plan.backend)
@@ -134,8 +141,10 @@ def serve_eei(args):
         log.info("chaos soak: seed=%d rate=%.3f (deterministic injection "
                  "at compile/launch/result/retire/thread points)",
                  args.chaos, args.chaos_rate)
-    # --mixed plans per bucket (plan=None); a fixed shape pins the plan.
+    # --mixed plans per bucket (plan=None, with the mesh); a fixed shape
+    # pins the plan.
     server = EeiServer(None if args.mixed else plan, device=args.device,
+                       mesh=serve_mesh if args.mixed else None,
                        max_batch=args.batch, max_inflight=args.inflight,
                        linger_ms=args.linger_ms, pack=args.pack, chaos=chaos)
     t0 = time.monotonic()
@@ -318,16 +327,31 @@ def main(argv=None):
                     help="torch device to serve on, every replica's with "
                     "--replicas (default: the card; 'cpu' runs the "
                     "kernels' plain versions)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM device mesh: the first D*M cards, or with "
+                    "--device that device repeated; buckets of at least D "
+                    "requests take the sharded backend")
+    ap.add_argument("--sharded", action="store_true",
+                    help="serve through the sharded backend on the --mesh "
+                    "data axis (stack buckets round up to it; needs D >= 2)")
     # Flags of the reference launcher whose features are not ported: named
     # so that asking for one is refused, not silently ignored.
-    ap.add_argument("--sharded", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--arch", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for dest, (feature, single) in _UNPORTED.items():
         if getattr(args, dest) not in single:
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag}: {feature} is not ported to repro_torch yet")
+    from repro_torch.launch.mesh import mesh_axes
+
+    try:
+        data, _ = mesh_axes(args.mesh)
+    except ValueError as exc:
+        ap.error(f"--mesh: {exc}")
+    if args.sharded and data < 2:
+        ap.error("--sharded needs a data axis of at least 2 devices: pass "
+                 "--mesh DxM with D >= 2 (with --device, that device "
+                 "repeated)")
     if not args.eei:
         ap.error("--eei is required: the EEI serving path is the only one "
                  "ported")

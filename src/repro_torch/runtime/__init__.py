@@ -1,14 +1,18 @@
 """Serving-runtime support: deterministic fault injection, retry and
-restart schedules, straggler detection and rendezvous routing (the ported
-part of ``repro.runtime``; its training supervisor and mesh helpers are
-not ported)."""
+restart schedules, straggler detection, rendezvous routing and elastic
+meshes (the ported part of ``repro.runtime``; its training supervisor and
+``reshard_state`` wait with the trainer)."""
 
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     RestartPolicy,
     decorrelated_jitter,
 )
 from repro_torch.runtime.straggler import StragglerWatchdog  # noqa: F401
-from repro_torch.runtime.elastic import route_key  # noqa: F401
+from repro_torch.runtime.elastic import (  # noqa: F401
+    best_grid,
+    make_elastic_mesh,
+    route_key,
+)
 from repro_torch.runtime.chaos import (  # noqa: F401
     ChaosConfig,
     ChaosError,

@@ -1,9 +1,10 @@
-"""Rendezvous routing for the replica fleet.
+"""Rendezvous routing for the replica fleet, and elastic meshes.
 
-The port's part of ``repro.runtime.elastic``: only :func:`route_key`, the
-hash ``engine.fleet`` routes requests and sessions with.  The mesh helpers
-of ``repro``'s module (``best_grid``, ``make_elastic_mesh``,
-``reshard_state``) belong to the sharded backend, which is not ported.
+The port's part of ``repro.runtime.elastic``: :func:`route_key`, the hash
+``engine.fleet`` routes requests and sessions with, and the mesh helpers
+:func:`best_grid` and :func:`make_elastic_mesh`, which rebuild a mesh from
+the devices that survive.  ``repro``'s ``reshard_state`` restores a
+training checkpoint onto the new mesh; it waits with the port's trainer.
 """
 
 from __future__ import annotations
@@ -44,3 +45,29 @@ def route_key(key, candidates, salt: int = 0):
         return h
 
     return max(candidates, key=score)
+
+
+def best_grid(n_devices: int, model_parallel: int) -> tuple:
+    """Largest ``(data, model)`` grid with the model axis at the requested
+    degree.
+
+    Shrinks the model axis by powers of two where the device count cannot
+    sustain it (12 survivors of a 16-wide job: ``(3, 4)`` ... ``(12, 1)``).
+    """
+    tp = model_parallel
+    while tp > 1 and n_devices % tp:
+        tp //= 2
+    return max(n_devices // tp, 1), tp
+
+
+def make_elastic_mesh(model_parallel: int, devices=None):
+    """The :func:`best_grid` mesh over ``devices`` (default: every card)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(count)]
+    data, model = best_grid(len(devices), model_parallel)
+    return make_local_mesh(data, model, devices=devices)

@@ -733,3 +733,47 @@ def test_fleet_of_two_replicas_on_card(cuda_device):
         w = np.linalg.eigvalsh(a.astype(np.float64))[-k:]
         np.testing.assert_allclose(res.eigenvalues, w, rtol=5e-3, atol=5e-3)
         assert res.vectors.shape == (k, a.shape[0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_two_device_mesh_solve_is_bitwise_its_plain_versions_per_shard(
+        cuda_device, dtype, monkeypatch):
+    """A solve on a logical 2x1 mesh of the card (the card twice): each
+    stage launches once a shard on half of the padded stack, every kernel-1
+    launch is bitwise and every kernel-2 launch within tolerance of its
+    plain version on that shard's operands, and the result is within
+    tolerance of the same solve on the CPU."""
+    from repro_torch import make_local_mesh
+
+    calls = {"sturm": [], "prod_diff": []}
+    for module, attr, key in ((st_ops, "sturm_bisect", "sturm"),
+                              (pd_ops, "logabs_sum_batched", "prod_diff")):
+        def capturing(*args, _fn=getattr(module, attr), _key=key, **kwargs):
+            out = _fn(*args, **kwargs)
+            calls[_key].append((args, kwargs, out))
+            return out
+
+        monkeypatch.setattr(module, attr, capturing)
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((3, 70, 70))
+    a = torch.as_tensor((a + np.swapaxes(a, 1, 2)) / 2, dtype=dtype)
+    mesh = make_local_mesh(2, 1, devices=[cuda_device, cuda_device])
+    plan = SolverPlan(method="eei_tridiag", backend="sharded", mesh=mesh)
+    gpu = SolverEngine(plan).solve(a)
+    assert [tuple(args[0].shape) for args, _, _ in calls["sturm"]] == \
+        [(2, 70)] * 2 + [(2 * 70, 69)] * 2
+    assert [tuple(args[0].shape) for args, _, _ in calls["prod_diff"]] == \
+        [(2, 70)] * 2
+    for args, kwargs, got in calls["sturm"]:
+        assert torch.equal(got, st_kernel.sturm_bisect_plain(*args, **kwargs))
+    for args, kwargs, got in calls["prod_diff"]:
+        _close(got, pd_kernel.logabs_sum_plain(*args, **kwargs),
+               TOL[dtype]["prod_diff"])
+    cpu = SolverEngine(SolverPlan(method="eei_tridiag"),
+                       device="cpu").solve(a)
+    tol = 1e-10 if dtype == torch.float64 else 2e-5
+    _close(gpu.eigenvalues.cpu(), cpu.eigenvalues, tol)
+    torch.testing.assert_close(
+        gpu.magnitudes.cpu(), cpu.magnitudes,
+        **(dict(rtol=1e-4, atol=1e-7) if dtype == torch.float64
+           else dict(rtol=0.0, atol=2e-3)))

@@ -203,7 +203,7 @@ def test_plan_from_reference_maps_backends_and_refuses_sharding():
         method="eei_krylov", backend="cuda", krylov_m=64)
     fields = dataclasses.asdict(r_engine.SolverPlan(backend="jnp"))
     fields["backend"] = "sharded"
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="the port's mesh"):
         plan_from_reference(fields)
 
 
@@ -219,7 +219,8 @@ def test_registered_compositions_validate():
         "eei_tridiag", "eei_tridiag_windowed", "eigh"]
     for name in ("eei_krylov", "eei_krylov_si"):
         assert registry.composition_for(name).solve is None
-    assert registry.available_backends() == ["cuda", "reference", "torch"]
+    assert registry.available_backends() == ["cuda", "reference", "sharded",
+                                             "torch"]
     bad = registry.Composition(
         name="bad", method="eei_tridiag", windowed=False,
         topk=(registry.StageSig("spectrum", "tridiag_full", ("d", "e"),
