@@ -124,12 +124,27 @@ Phases, each of which fails the run (non-zero exit) on error:
    mesh and eigh; every ladder variant against float64 eigh at n = 12 and
    at the n = 200 (x10) overflow case, and one component per variant timed
    at n = 600 beside ``numpy_ref.numpy_full_eigh`` and
-   ``numpy_ref.eigen_component_optimized`` on the host.
+   ``numpy_ref.eigen_component_optimized`` on the host;
+14. serve the language model at full published width, seeded weights drawn
+   on the card, B = 2 greedy sequences of 16 tokens: gemma2-2b (prompts of
+   5120 tokens, past its 4096-token window) in float32, its prefill's last
+   logits within 1e-2 of max |logit| of a float64 run of the same weights
+   and of a prefill of 5112 tokens plus 8 decode steps, then in bfloat16
+   (params cast once) within 0.15 of float32; whisper-large-v3 (1500
+   frames, prompts of 224 tokens) in float32, its float64 and consistency
+   gates at full width and depth 1 + 1 (at full depth its random-weight
+   attention is so sharp that even float64 moves by O(1) under a 2**-24
+   nudge of the frames, printed); every logit finite, every token in the
+   vocabulary; prefill ms, decode ms a token, tokens/s and peak memory
+   beside each call's bound; then ``launch/serve.py --arch gemma2-2b
+   --batch 4 --prompt-len 32 --gen 16`` in a subprocess on the card: exit
+   0, a 4 x 16 array of token ids, a log that names ``cuda``.  The path
+   runs no kernel of the repo: every launch count stays 0.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
-run of the packed program), 7, 8, each stream of 11, each part of 12 and
-each run of 13 and read just after, and a kernel that its path did not
-launch fails the run.  The records of kernels 1, 2 and 3 on the served
+run of the packed program), 7, 8, each stream of 11, each part of 12, each
+run of 13 and phase 14 and read just after, and a kernel that its path did
+not launch fails the run (phase 14: a kernel that it launched).  The records of kernels 1, 2 and 3 on the served
 paths carry the launches of phase 11's streams (``server_launches``) and of
 phase 12's in-process parts (``fleet_launches``; the worker processes'
 launches are not counted in this process); every record carries its
@@ -248,6 +263,32 @@ FLEET_REPLICAS, FLEET_SALT, FLEET_SUBPROCESS = 3, 7, 16
 FLEET_CHAOS = dict(seed=51, replica_kill_rate=0.03, replica_hang_rate=0.02,
                    replica_slow_rate=0.05)
 FLEET_DEADLINE_X, FLEET_DEADLINE_MIN_S = 4.0, 2.0
+#: The LM phase, at the configs' full published widths, weights and prompts
+#: seeded: gemma2-2b with LM_BATCH prompts of LM_GEMMA_PROMPT tokens (past its
+#: 4096-token local window), and whisper-large-v3 with LM_BATCH x 1500
+#: frames and prompts of LM_WHISPER_PROMPT tokens; LM_GEN greedy tokens
+#: each.  The consistency check prefills all but the prompt's last LM_TAIL
+#: tokens and decodes those, teacher-forced: a prefill of 5119 (a prime)
+#: would run in chunks of one token (_fit_chunk).  Gates, relative to the
+#: reference's max |logit|: the float32 prefill's last logits against a
+#: float64 run of the same weights, LM_F64_TOL, and the consistency check,
+#: LM_CONSISTENCY_TOL (sharp random-weight attention over 26 to 64 layers
+#: amplifies float32 rounding: reduced llama-vision's ten layers already
+#: reach 2.7e-3 on the CPU, tests/test_torch_lm.py); bfloat16 against
+#: float32, LM_BF16_TOL.  whisper's gates run at a cut depth (_lm_whisper).  The launcher serves gemma2-2b in a subprocess:
+#: LM_LAUNCHER_BATCH prompts of 32 tokens, LM_LAUNCHER_GEN tokens.
+LM_BATCH, LM_GEN, LM_TAIL = 2, 16, 8
+LM_GEMMA_PROMPT, LM_WHISPER_PROMPT = 5120, 224
+LM_F64_TOL, LM_CONSISTENCY_TOL, LM_BF16_TOL = 1e-2, 1e-2, 0.15
+LM_LAUNCHER_BATCH, LM_LAUNCHER_GEN, LM_LAUNCHER_TIMEOUT_S = 4, 16, 600
+#: whisper's float64 and consistency gates run at full width and this depth
+#: (encoder and decoder layers): see _lm_whisper.
+LM_WHISPER_GATE_DEPTH = 1
+LM_LAUNCHER = ("--arch", "gemma2-2b", "--batch", str(LM_LAUNCHER_BATCH),
+               "--prompt-len", "32", "--gen", str(LM_LAUNCHER_GEN))
+#: Dense peak of the H100 SXM in bfloat16 (NVIDIA data sheet), for the
+#: bfloat16 LM run's bound.
+PEAK_BF16 = 989e12
 
 
 class PhaseError(RuntimeError):
@@ -342,6 +383,7 @@ def main() -> int:
         kind = r["name"].split("[")[0]
         r["sharded_launches"] = {tag: counts[kind]
                                  for tag, counts in sharded.items()}
+    _phase_lm(torch, dev)
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -3816,6 +3858,311 @@ def _phase_sharded(torch, dev, stack, engine_results, known):
     print(f"[timing] the sharded phase took {time.perf_counter() - t_phase:.1f}"
           f" s with its checks ({card})")
     return launches
+
+
+def _lm_rel(torch, got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    ref = ref.double()
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def _lm_generate(torch, model, params, batch, prompt):
+    """Prefill, then LM_GEN - 1 greedy decode steps (the launcher's loop).
+    Returns the logits of every step (LM_GEN, B, V), the tokens (B, LM_GEN),
+    the prefill's wall ms and the decode's wall ms a step, synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, caches = model.prefill(params, batch, prompt + LM_GEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    tok = logits.argmax(-1)
+    out, toks = [logits], [tok]
+    t = time.perf_counter()
+    for i in range(LM_GEN - 1):
+        logits, caches = model.decode_step(params, caches, tok, prompt + i)
+        tok = logits.argmax(-1)
+        out.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / (LM_GEN - 1)
+    return torch.stack(out), torch.stack(toks, 1), prefill_ms, decode_ms
+
+
+def _lm_bounds(model, batch: int, prompt: int, elsize: int, peak: float):
+    """The least time of a prefill of ``prompt`` tokens and of a decode step
+    (at the mean position of the LM_GEN - 1 steps) on the card: the larger
+    of the bytes the call must move over PEAK_BYTES and its operations over
+    ``peak``.  Operations: 2 x rows x weights of every product (rows: the
+    tokens; the frames for the encoder and for the cross keys and values;
+    one a sequence in decode), 4 x heads x head_dim for every (query, key)
+    pair the masks let through, the head on the last token only.  Bytes:
+    every weight the call reads, once (prefill: all of them; decode: the
+    decoder's, less the cross keys' and values' projections, whose output
+    prefill left in the caches, and one embedding row a sequence unless
+    the head is the embedding), the cache positions read and written, the
+    logits.  Returns {call: (ms, "bytes" or "operations", ops, bytes)}."""
+    import math
+
+    cfg = model.cfg
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    kv_row = 2 * cfg.n_kv_heads * dh * elsize  # k and v of one position
+    pos = prompt + (LM_GEN - 2) / 2  # the mean decode position
+    src = cfg.enc_seq if cfg.family == "audio" else cfg.img_seq
+    window = cfg.window or float("inf")
+    pre_ops = dec_ops = 0.0
+    pre_bytes = dec_bytes = batch * cfg.vocab_size * 4  # the logits
+    for name, decl in model.layer_table().items():
+        size = math.prod(decl.shape)
+        pre_bytes += size * elsize
+        if name == "unembed" or (name == "embed/tokens"
+                                 and cfg.tie_embeddings):
+            pre_ops += 2 * batch * size
+            dec_ops += 2 * batch * size
+            dec_bytes += size * elsize
+        elif name == "embed/tokens":
+            dec_bytes += batch * cfg.d_model * elsize
+        elif name.startswith("enc"):
+            if name.startswith("enc/") and len(decl.shape) > 1:
+                pre_ops += 2 * batch * cfg.enc_seq * size
+        elif "/xattn/wk" in name or "/xattn/wv" in name:
+            pre_ops += 2 * batch * src * size
+        else:
+            if len(decl.shape) > 1:
+                pre_ops += 2 * batch * prompt * size
+                dec_ops += 2 * batch * size
+            dec_bytes += size * elsize
+    kinds = [k for r, ks in cfg.pattern for _ in range(r) for k in ks]
+    attend = 4 * batch * h * dh  # operations a (query, key) pair
+    for kind in kinds + ["attn_bidir"] * cfg.n_enc_layers:
+        if kind == "attn_bidir":
+            pre_ops += attend * cfg.enc_seq ** 2
+            continue
+        if kind != "cross":
+            w = window if kind == "attn_local" else float("inf")
+            pre_ops += attend * sum(min(q + 1, w) for q in range(prompt))
+            seen = min(pos + 1, w)
+            dec_ops += attend * seen
+            pre_bytes += batch * kv_row * prompt
+            dec_bytes += batch * kv_row * (seen + 1)
+        if kind in ("cross", "dec_cross"):
+            pre_ops += attend * prompt * src
+            dec_ops += attend * src
+            pre_bytes += batch * kv_row * src
+            dec_bytes += batch * kv_row * src
+    out = {}
+    for call, ops, nbytes in (("prefill", pre_ops, pre_bytes),
+                              ("decode", dec_ops, dec_bytes)):
+        by_ops, by_bytes = ops / peak, nbytes / PEAK_BYTES
+        out[call] = (max(by_ops, by_bytes) * 1e3,
+                     "operations" if by_ops >= by_bytes else "bytes",
+                     ops, nbytes)
+    return out
+
+
+def _lm_line(tag, n_params, elsize, batch, prompt, run, bounds, peak_gb,
+             card):
+    _, _, prefill_ms, decode_ms = run
+    (pb, pby, pops, pbytes), (db, dby, dops, dbytes) = (bounds["prefill"],
+                                                         bounds["decode"])
+    print(f"[lm] {tag}: {n_params / 1e9:.3f} B parameters "
+          f"({n_params * elsize / 1e9:.2f} GB), B = {batch}, prompt {prompt},"
+          f" {LM_GEN} greedy tokens; prefill {prefill_ms:.1f} ms (bound "
+          f"{pb:.1f} ms by {pby}: {pops / 1e12:.2f} TFLOP, "
+          f"{pbytes / 1e9:.2f} GB); decode {decode_ms:.3f} ms a token "
+          f"(bound {db:.3f} ms by {dby}: {dbytes / 1e9:.3f} GB, "
+          f"{dops / 1e9:.2f} GFLOP), "
+          f"{batch * 1e3 / decode_ms:.1f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated); {card}")
+
+
+def _lm_build(torch, dev, cfg, prompt):
+    """``cfg``'s model on the card, weights drawn there from SEED, and the
+    launcher's seeded batch of LM_BATCH prompts."""
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.models import LanguageModel
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = lm_batch(cfg, LM_BATCH, prompt, SEED, dev)
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name}: {model.n_params()} parameters drawn on the card "
+          f"in {time.perf_counter() - t:.2f} s")
+    return model, batch
+
+
+def _lm_serve(torch, model, params, batch, prompt, tag, elsize, peak, card):
+    """A warm-up prefill, then the timed prefill and LM_GEN - 1 greedy steps,
+    every logit finite and every token in the vocabulary.  Returns the
+    logits of every step and the tokens."""
+    cfg = model.cfg
+    model.prefill(params, batch, prompt + LM_GEN)  # cuBLAS, lazy modules
+    torch.cuda.reset_peak_memory_stats()
+    run = _lm_generate(torch, model, params, batch, prompt)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    logits, tokens = run[0], run[1]
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    check(tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{tag}: tokens {tuple(tokens.shape)} outside the vocabulary")
+    _lm_line(tag, model.n_params(), elsize, LM_BATCH, prompt, run,
+             _lm_bounds(model, LM_BATCH, prompt, elsize, peak), peak_gb,
+             card)
+    return logits, tokens
+
+
+def _lm_exact(torch, model, params, batch, prompt, frames_scale=1.0):
+    """The float64 prefill's last logits of the same weights (the frames
+    scaled by ``frames_scale``)."""
+    from repro_torch.train.steps import cast_tree
+
+    p64 = cast_tree(params, torch.float64)
+    b64 = {k: v.double() * (frames_scale if k == "frames" else 1.0)
+           if v.is_floating_point() else v for k, v in batch.items()}
+    return model.prefill(p64, b64, prompt + LM_GEN)[0]
+
+
+def _lm_gates(torch, model, batch, prompt, what):
+    """The float64 and consistency gates on the float32 prefill's last
+    logits: against the float64 run, and against a prefill of all but the
+    last LM_TAIL prompt tokens followed by LM_TAIL decode steps."""
+    p32 = model.param_dict()
+    logits, caches = model.prefill(p32, batch, prompt + LM_GEN)
+    del caches
+    exact = _lm_exact(torch, model, p32, batch, prompt)
+    err64 = _lm_rel(torch, logits, exact)
+    check(bool(torch.isfinite(exact).all()) and err64 <= LM_F64_TOL,
+          f"{what}: float32 prefill logits {err64:.3e} of max |logit| from "
+          f"float64 (limit {LM_F64_TOL:g})")
+    head = {k: v[:, :-LM_TAIL] if k in ("tokens", "labels") else v
+            for k, v in batch.items()}
+    _, caches = model.prefill(p32, head, prompt + LM_GEN)
+    for pos in range(prompt - LM_TAIL, prompt):
+        step, caches = model.decode_step(p32, caches,
+                                         batch["tokens"][:, pos], pos)
+    err_c = _lm_rel(torch, step, logits)
+    check(err_c <= LM_CONSISTENCY_TOL,
+          f"{what}: prefill of {prompt - LM_TAIL} + {LM_TAIL} decode steps "
+          f"{err_c:.3e} of max |logit| from prefill of {prompt} (limit "
+          f"{LM_CONSISTENCY_TOL:g})")
+    print(f"[lm] {what} gates: prefill float32 vs float64 {err64:.3e} of max"
+          f" |logit| (limit {LM_F64_TOL:g}); prefill of {prompt - LM_TAIL} + "
+          f"{LM_TAIL} decode steps vs prefill of {prompt} {err_c:.3e} "
+          f"(limit {LM_CONSISTENCY_TOL:g})")
+
+
+def _lm_gemma(torch, dev, card):
+    """gemma2-2b at full width and depth: float32 served and gated, then in
+    bfloat16 (the params cast once) against float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.steps import cast_tree
+
+    cfg, prompt = get_config("gemma2-2b"), LM_GEMMA_PROMPT
+    model, batch = _lm_build(torch, dev, cfg, prompt)
+    logits, tokens = _lm_serve(torch, model, model.param_dict(), batch,
+                               prompt, "gemma2-2b float32", 4,
+                               PEAK_OPS["float32"], card)
+    _lm_gates(torch, model, batch, prompt, "gemma2-2b")
+    pb = cast_tree(model.param_dict(), torch.bfloat16)  # once, before decode
+    logits_b, tokens_b = _lm_serve(torch, model, pb, batch, prompt,
+                                   "gemma2-2b bfloat16", 2, PEAK_BF16, card)
+    err_b = _lm_rel(torch, logits_b[0], logits[0])
+    check(err_b <= LM_BF16_TOL, f"gemma2-2b: bfloat16 prefill logits "
+          f"{err_b:.3e} of max |logit| from float32 (limit {LM_BF16_TOL:g})")
+    print(f"[lm] gemma2-2b bfloat16 gate: prefill logits {err_b:.3e} of max "
+          f"|logit| from float32 (limit {LM_BF16_TOL:g}); "
+          f"{int((tokens_b == tokens).sum())} of {tokens.numel()} greedy "
+          f"tokens as in float32")
+
+
+def _lm_whisper(torch, dev, card):
+    """whisper-large-v3 at full width and depth, float32, served; its
+    float64 and consistency gates at full width and depth
+    LM_WHISPER_GATE_DEPTH.  Under repro's init rules every attention score
+    has a standard deviation of ~64 here (no softcap), so the softmax picks
+    near-argmax keys and, from 4 layers on, even the float64 prefill moves
+    by O(1) of max |logit| when the frames move by 2**-24 (the sensitivity
+    printed at full depth).  No comparison of two orders of rounding can be
+    held there; at depth LM_WHISPER_GATE_DEPTH the function is
+    well-conditioned."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg, prompt = get_config("whisper-large-v3"), LM_WHISPER_PROMPT
+    model, batch = _lm_build(torch, dev, cfg, prompt)
+    p32 = model.param_dict()
+    logits, _ = _lm_serve(torch, model, p32, batch, prompt,
+                          "whisper-large-v3 float32", 4, PEAK_OPS["float32"],
+                          card)
+    exact = _lm_exact(torch, model, p32, batch, prompt)
+    moved = _lm_exact(torch, model, p32, batch, prompt, 1 + 2.0 ** -24)
+    check(bool(torch.isfinite(exact).all()), "whisper float64: non-finite")
+    print(f"[lm] whisper-large-v3 at depth {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} (not gated): prefill float32 vs float64 "
+          f"{_lm_rel(torch, logits[0], exact):.3e} of max |logit|; float64 "
+          f"with the frames x (1 + 2**-24) vs float64 "
+          f"{_lm_rel(torch, moved, exact):.3e}")
+    del model, p32, exact, moved
+    depth = LM_WHISPER_GATE_DEPTH
+    cut = dataclasses.replace(cfg, n_layers=depth, n_enc_layers=depth,
+                              pattern=((depth, ("dec_cross",)),))
+    model, batch = _lm_build(torch, dev, cut, prompt)
+    _lm_gates(torch, model, batch, prompt,
+              f"whisper-large-v3 at depth {depth} + {depth}")
+
+
+def _phase_lm(torch, dev):
+    """The language model's serving path at full published width: gemma2-2b
+    (float32, float64 and bfloat16) and whisper-large-v3 (float32, float64)
+    through ``LanguageModel.prefill`` / ``decode_step``, then
+    ``launch/serve.py --arch`` in a subprocess.  The path runs no kernel of
+    the repo: every launch count stays 0."""
+    card = _gpu_name_and_limit()
+    t_phase = time.perf_counter()
+    _reset_counts()
+    with torch.inference_mode():
+        _lm_gemma(torch, dev, card)
+        _lm_whisper(torch, dev, card)
+    counts = _read_counts()
+    check(not any(counts.values()), f"lm: the LM path launched a kernel of "
+          f"the repo: {counts}")
+    torch.cuda.empty_cache()
+
+    import os
+
+    import numpy as np
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LM_LAUNCHER],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=LM_LAUNCHER_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"lm launcher exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    from repro_torch.configs import get_config
+
+    gen = np.array(json.loads(proc.stdout.strip().splitlines()[-1]))
+    shape = (LM_LAUNCHER_BATCH, LM_LAUNCHER_GEN)
+    check(gen.shape == shape and gen.dtype.kind == "i" and bool(
+        ((gen >= 0) & (gen < get_config("gemma2-2b").vocab_size)).all()),
+        f"lm launcher printed {gen.tolist()}")
+    logged = [line for line in proc.stderr.splitlines()
+              if "repro_torch.serve" in line]
+    check(any("on cuda" in line for line in logged),
+          f"lm launcher did not serve on cuda: {logged}")
+    for line in logged:
+        print(f"[lm] launcher: {line}")
+    print(f"[lm] launcher {' '.join(LM_LAUNCHER)}: exit 0, a "
+          f"{shape[0]} x {shape[1]} array of token ids in the vocabulary, "
+          f"{wall:.1f} s in all (process start, import, weights, prefill, "
+          f"decode); {card}")
+    print(f"[timing] the LM phase took {time.perf_counter() - t_phase:.1f} s"
+          f" ({card})")
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

@@ -1,11 +1,12 @@
 """Carrying a ``repro`` problem across to the port.
 
-This system has no weights: its state is the plan and the input stack.
+The EEI engine has no weights: its state is the plan and the input stack.
 :func:`plan_from_reference` takes ``dataclasses.asdict`` of a ``repro``
 plan and maps its backend names (``pallas -> cuda``, ``jnp -> torch``,
 ``sharded -> sharded`` on a port mesh the caller gives);
 :func:`stack_from_numpy` puts a numpy stack on a device.  Both packages can
-then run the same plan on the same data.
+then run the same plan on the same data.  The language model has weights:
+:func:`params_from_reference` loads ``repro``'s into the port's model.
 """
 
 from __future__ import annotations
@@ -43,3 +44,32 @@ def stack_from_numpy(a: np.ndarray, device, dtype: torch.dtype | None = None):
     """A numpy matrix or stack as a tensor on ``device`` (``dtype`` if given,
     else the array's own)."""
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+def params_from_reference(model, flat: dict) -> None:
+    """Load ``repro``'s flat parameter dict (``LanguageModel.init``'s output
+    as numpy arrays, layer groups stacked on axis 0) into the port's
+    ``models.lm.LanguageModel``, one row of each stacked array per layer,
+    cast to the model's dtype on its device.  Every name and shape must
+    match both ways: a key of ``flat`` the model does not hold, a parameter
+    ``flat`` does not give, or a shape that differs raises ``ValueError``.
+    """
+    names = model.reference_names()
+    table = model.param_table()
+    extra = sorted(set(flat) - set(table))
+    missing = sorted(set(table) - set(flat))
+    if extra or missing:
+        raise ValueError(f"repro's parameters and the port's differ: "
+                         f"{extra} not in the port, {missing} not given")
+    for key, decl in table.items():
+        got = tuple(np.shape(flat[key]))
+        if got != decl.shape:
+            raise ValueError(f"{key}: repro gives {got}, the port's table "
+                             f"declares {decl.shape}")
+    weights = model.param_dict()
+    with torch.no_grad():
+        for name, (key, row) in names.items():
+            src = np.asarray(flat[key])
+            if row is not None:
+                src = src[row]
+            weights[name].copy_(torch.as_tensor(np.array(src)))

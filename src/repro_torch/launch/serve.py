@@ -30,13 +30,29 @@ the timed region.
 
 The server (every replica's, with ``--replicas``) runs on the card unless
 ``--device`` names another device; with no card and no ``--device`` it
-refuses to run.  Not ported yet, and refused when asked for: the
-language-model path (``--arch``).
+refuses to run.
+
+The language-model path, the twin of ``repro``'s ``--arch`` mode:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+        [--reduced] [--batch 4] [--prompt-len 32] [--gen 16] \
+        [--dtype float32|bfloat16] [--seed 0] [--device cpu]
+
+builds the config's ``LanguageModel`` with weights drawn from ``--seed``,
+prefills ``--batch`` seeded prompts of ``--prompt-len`` tokens (whisper's
+frames and llama-vision's images are seeded too), decodes ``--gen`` tokens
+greedily, and prints the ``(batch, gen)`` token ids as a JSON list.  The
+parameters are cast to ``--dtype`` once, before the decode loop.  It runs
+on the card unless ``--device`` names another device.  Refused by name: a
+config that holds a block kind the port does not run yet (``mla``,
+``attn_moe``, ``mamba``, ...), and ``--mesh`` other than ``1x1`` (the
+sharded LM path is not ported yet).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import time
 
@@ -45,12 +61,69 @@ import torch
 
 log = logging.getLogger("repro_torch.serve")
 
-#: Flags of ``repro``'s launcher whose feature the port does not have yet:
-#: dest -> (the feature, the values that ask for nothing beyond one server
-#: on one device).
-_UNPORTED = {
-    "arch": ("the language-model path", (None,)),
-}
+
+def lm_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """The launcher's seeded prompts: ``tokens`` (and ``labels``, the same)
+    of ``(batch, prompt_len)``, plus whisper's ``frames`` and llama-vision's
+    ``images`` (N(0, 1) * 0.02, ``repro``'s scale), drawn in that order
+    from a CPU ``torch.Generator`` seeded with ``seed`` and put on
+    ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen)
+    out = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "audio":
+        out["frames"] = torch.randn(batch, cfg.enc_seq, cfg.d_model,
+                                    generator=gen) * 0.02
+    if cfg.family == "vlm":
+        out["images"] = torch.randn(batch, cfg.img_seq, cfg.d_model,
+                                    generator=gen) * 0.02
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def serve_lm(args, cfg):
+    """Greedy batched decode of ``cfg``'s model: prefill fills the caches,
+    then ``serve_step`` decodes one token at a time.  Returns the
+    ``(batch, gen)`` token ids as a numpy array."""
+    from repro_torch.models import LanguageModel
+    from repro_torch.train.steps import cast_tree, make_serve_step
+
+    compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
+                     else torch.float32)
+    smax = args.prompt_len + args.gen
+    with torch.inference_mode():
+        model = LanguageModel(cfg, device=args.device)
+        dev = model.device
+        card = (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
+                else "")
+        log.info("lm serve: %s, %d parameters on %s%s, %s, batch=%d "
+                 "prompt=%d gen=%d", cfg.name, model.n_params(), dev, card,
+                 args.dtype, args.batch, args.prompt_len, args.gen)
+        model.init(torch.Generator(device=dev).manual_seed(args.seed))
+        batch = lm_batch(cfg, args.batch, args.prompt_len, args.seed, dev)
+        # One cast before the loop: serve_step's own cast is then free.
+        params = cast_tree(model.param_dict(), compute_dtype)
+        serve_step = make_serve_step(model, compute_dtype)
+
+        t0 = time.monotonic()
+        logits, caches = model.prefill(params, batch, smax)
+        tok = torch.argmax(logits, dim=-1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        log.info("prefill %.3fs (B=%d, S=%d)", time.monotonic() - t0,
+                 args.batch, args.prompt_len)
+        out_tokens = [tok]
+        t0 = time.monotonic()
+        for i in range(args.gen - 1):
+            tok, caches = serve_step(params, caches, tok, args.prompt_len + i)
+            out_tokens.append(tok)
+        gen = torch.stack(out_tokens, dim=1).cpu().numpy()
+        dt = time.monotonic() - t0
+    log.info("decode %d tokens x %d seqs in %.3fs (%.1f tok/s) on %s%s",
+             gen.shape[1], gen.shape[0], dt, gen.size / max(dt, 1e-9), dev,
+             card)
+    print(json.dumps(gen.tolist()))
+    return gen
 
 
 def serve_eei(args):
@@ -270,8 +343,19 @@ def _serve_eei_fleet(args, stream, gap_s, rng):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--eei", action="store_true",
-                    help="serve batched EEI top-k queries (the only mode "
-                    "ported)")
+                    help="serve batched EEI top-k queries")
+    ap.add_argument("--arch", default=None,
+                    help="serve this config's language model (greedy "
+                    "decode), unless --eei is given")
+    ap.add_argument("--reduced", action="store_true",
+                    help="LM: the config's reduced (smoke) version")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="LM: prompt tokens a sequence")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="LM: tokens to generate a sequence")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="LM: compute dtype (the parameters are cast once)")
     ap.add_argument("--n", type=int, default=64, help="EEI matrix size")
     ap.add_argument("--k", type=int, default=4, help="EEI top-k per query")
     ap.add_argument("--requests", type=int, default=64,
@@ -321,12 +405,12 @@ def main(argv=None):
                     help="path to a calibration table (JSON); default: "
                     "env/cache/repo-default resolution chain")
     ap.add_argument("--batch", type=int, default=4,
-                    help="max requests per stack")
+                    help="EEI: max requests per stack; LM: sequences")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device to serve on, every replica's with "
                     "--replicas (default: the card; 'cpu' runs the "
-                    "kernels' plain versions)")
+                    "kernels' plain versions, or the LM on the CPU)")
     ap.add_argument("--mesh", default="1x1",
                     help="DxM device mesh: the first D*M cards, or with "
                     "--device that device repeated; buckets of at least D "
@@ -334,29 +418,40 @@ def main(argv=None):
     ap.add_argument("--sharded", action="store_true",
                     help="serve through the sharded backend on the --mesh "
                     "data axis (stack buckets round up to it; needs D >= 2)")
-    # Flags of the reference launcher whose features are not ported: named
-    # so that asking for one is refused, not silently ignored.
-    ap.add_argument("--arch", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for dest, (feature, single) in _UNPORTED.items():
-        if getattr(args, dest) not in single:
-            flag = "--" + dest.replace("_", "-")
-            ap.error(f"{flag}: {feature} is not ported to repro_torch yet")
     from repro_torch.launch.mesh import mesh_axes
 
     try:
-        data, _ = mesh_axes(args.mesh)
+        data, model = mesh_axes(args.mesh)
     except ValueError as exc:
         ap.error(f"--mesh: {exc}")
     if args.sharded and data < 2:
         ap.error("--sharded needs a data axis of at least 2 devices: pass "
                  "--mesh DxM with D >= 2 (with --device, that device "
                  "repeated)")
-    if not args.eei:
-        ap.error("--eei is required: the EEI serving path is the only one "
-                 "ported")
+    if args.eei:
+        logging.basicConfig(level=logging.INFO)
+        return serve_eei(args)
+    if args.arch is None:
+        ap.error("--eei is required unless --arch is given")
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import check_ported
+
+    try:
+        cfg = get_config(args.arch)
+    except KeyError as exc:
+        ap.error(f"--arch: {exc.args[0]}")
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    try:
+        check_ported(cfg)
+    except NotImplementedError as exc:
+        ap.error(str(exc))
+    if data * model > 1:
+        ap.error(f"--mesh {args.mesh} with --arch: the sharded LM path is "
+                 f"not ported yet")
     logging.basicConfig(level=logging.INFO)
-    return serve_eei(args)
+    return serve_lm(args, cfg)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,361 @@
+"""Model assembly: embedding -> block groups -> head.
+
+The twin of ``repro.models.lm`` for the attention-family configs (the
+kinds of ``blocks.PORTED_KINDS``: gemma2, whisper, the dense code models,
+llama-vision).  :class:`LanguageModel` is an ``nn.Module`` on an explicit
+device and dtype that holds one parameter per declared tensor, in
+``repro``'s einsum layouts.  ``repro`` stacks each layer group on a
+leading axis and ``lax.scan``s over it; the port keeps one tensor per
+layer and loops over the layers.  Its flat names are ``repro``'s keys with
+the layer index inserted after the group (``dec/g0/3/b0:attn_local/attn/wq``
+is row 3 of ``repro``'s ``dec/g0/b0:attn_local/attn/wq``); see
+:meth:`LanguageModel.reference_names`.
+
+The methods are functional in the parameters, as ``repro``'s: each takes a
+``{name: tensor}`` dict (:meth:`LanguageModel.param_dict`, or a cast of it
+from ``train.steps.cast_tree``).  Caches keep ``repro``'s layout (a list
+per group of ``{bkey: {"k": (L, B, Smax, Hkv, Dh), ...}}``); decode writes
+them in place.  Remat (``jax.checkpoint``) is a training concern and waits
+with the trainer.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks, common
+from repro_torch.models.attention import TensorSpec
+from repro_torch.models.params import (
+    ParamDecl,
+    ParamTable,
+    init_one,
+    merge_tables,
+    num_params,
+    prefix_table,
+    stack_table,
+)
+
+
+def _enc_pattern(cfg: ModelConfig):
+    return ((cfg.n_enc_layers, ("attn_bidir",)),) if cfg.n_enc_layers else ()
+
+
+def param_table(cfg: ModelConfig) -> ParamTable:
+    """``repro``'s flat table: layer groups stacked on a leading axis."""
+    t: ParamTable = {
+        "embed/tokens": ParamDecl((cfg.vocab_size, cfg.d_model),
+                                  ("vocab", "embed"), init="embed"),
+        "final_norm": ParamDecl((cfg.d_model,), ("embed",), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        t["unembed"] = ParamDecl((cfg.d_model, cfg.vocab_size),
+                                 ("embed", "vocab"), init="output")
+    for gi, (repeat, kinds) in enumerate(cfg.pattern):
+        group: ParamTable = {}
+        for bi, kind in enumerate(kinds):
+            if kind in cfg.shared_blocks:
+                continue
+            group = merge_tables(
+                group,
+                prefix_table(f"b{bi}:{kind}",
+                             blocks.block_param_table(cfg, kind)),
+            )
+        t.update(prefix_table(f"dec/g{gi}", stack_table(group, repeat)))
+    for kind in cfg.shared_blocks:
+        t.update(prefix_table(f"shared/{kind}",
+                              blocks.block_param_table(cfg, kind)))
+    for gi, (repeat, kinds) in enumerate(_enc_pattern(cfg)):
+        group = prefix_table("b0:attn_bidir",
+                             blocks.block_param_table(cfg, "attn_bidir"))
+        t.update(prefix_table(f"enc/g{gi}", stack_table(group, repeat)))
+    if cfg.n_enc_layers:
+        t["enc_pos"] = ParamDecl((cfg.enc_seq, cfg.d_model),
+                                 (None, "embed"), init="embed")
+        t["enc_final_norm"] = ParamDecl((cfg.d_model,), ("embed",),
+                                        init="zeros")
+    return t
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "LanguageModel runs on the card by default and found no CUDA "
+                "device; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _layer_view(cache, li: int):
+    """The per-layer views of a stacked cache tree."""
+    if isinstance(cache, dict):
+        return {k: _layer_view(v, li) for k, v in cache.items()}
+    return cache[li]
+
+
+class LanguageModel(nn.Module):
+    """A ``ModelConfig``'s language model on ``device`` (the card when None;
+    ``"meta"`` allocates nothing) with parameters of ``dtype``.  A config
+    that holds a block kind the port does not run is refused here
+    (``NotImplementedError`` naming the kind).  The parameters start at
+    zero: fill them with :meth:`init` or ``interop.params_from_reference``.
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        blocks.check_ported(cfg)
+        self.cfg = cfg
+        self.device = _resolve_device(device)
+        # Port name -> (repro key, layer row or None), and the port's own
+        # (per-layer) decls.
+        self._reference: dict[str, tuple[str, int | None]] = {}
+        self._decls: ParamTable = {}
+        # scope -> [group][layer] -> {bkey: {path within block: port name}}
+        self._layers: dict[str, list[list[dict]]] = {"dec": [], "enc": []}
+        for key, decl in param_table(cfg).items():
+            scope = key.split("/", 1)[0]
+            if scope not in ("dec", "enc"):
+                self._reference[key] = (key, None)
+                self._decls[key] = decl
+                continue
+            _, group, bkey, path = key.split("/", 3)
+            gi = int(group[1:])
+            layers = self._layers[scope]
+            while len(layers) <= gi:
+                layers.append([])
+            one = ParamDecl(decl.shape[1:], decl.axes[1:], decl.init,
+                            decl.fan_in)
+            for li in range(decl.shape[0]):
+                name = f"{scope}/{group}/{li}/{bkey}/{path}"
+                self._reference[name] = (key, li)
+                self._decls[name] = one
+                while len(layers[gi]) <= li:
+                    layers[gi].append({})
+                layers[gi][li].setdefault(bkey, {})[path] = name
+        self.weights = nn.ParameterDict({
+            name: nn.Parameter(torch.zeros(decl.shape, dtype=dtype,
+                                           device=self.device))
+            for name, decl in sorted(self._decls.items())})
+
+    # -- parameters ------------------------------------------------------------
+
+    def param_table(self) -> ParamTable:
+        """``repro``'s table (stacked layer groups)."""
+        return param_table(self.cfg)
+
+    def layer_table(self) -> ParamTable:
+        """The port's table: one decl per parameter, by port name."""
+        return dict(self._decls)
+
+    def reference_names(self) -> dict[str, tuple[str, int | None]]:
+        """Port name -> (``repro``'s flat key, the row of its stacked layer
+        axis, or None for an unstacked parameter)."""
+        return dict(self._reference)
+
+    def param_dict(self) -> dict[str, torch.Tensor]:
+        """``{port name: parameter}``, the argument of the methods below."""
+        return dict(self.weights.items())
+
+    def n_params(self) -> int:
+        return num_params(self.param_table())
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "LanguageModel":
+        """Draw every parameter by ``repro``'s rules (``params.init_one``)
+        from ``generator``, in sorted port-name order.  The draws are made
+        on the generator's device."""
+        for name in sorted(self._decls):
+            init_one(self._decls[name], self.weights[name].data, generator)
+        return self
+
+    # -- group plumbing --------------------------------------------------------
+
+    def _layer_params(self, params: dict, scope: str, gi: int,
+                      li: int) -> dict:
+        return {bkey: {path: params[name] for path, name in paths.items()}
+                for bkey, paths in self._layers[scope][gi][li].items()}
+
+    def _run_groups(self, params, x, ctx, pattern, scope, sink=None):
+        """Every layer of ``pattern`` in order; ``sink(gi, li, bkey, kind,
+        kv)`` receives each block's cache payload."""
+        cfg = self.cfg
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for gi, (repeat, kinds) in enumerate(pattern):
+            for li in range(repeat):
+                layer = self._layer_params(params, scope, gi, li)
+                for bi, kind in enumerate(kinds):
+                    bkey = f"b{bi}:{kind}"
+                    x, aux, kv = blocks.apply_block(cfg, kind, layer[bkey], x,
+                                                    ctx)
+                    aux_total = aux_total + aux
+                    if sink is not None:
+                        sink(gi, li, bkey, kind, kv)
+        return x, aux_total
+
+    # -- embedding / head -------------------------------------------------------
+
+    def _embed(self, params, tokens):
+        cfg = self.cfg
+        x = params["embed/tokens"][tokens]
+        if cfg.embed_scale:
+            x = x * math.sqrt(cfg.d_model)
+        return x
+
+    def _head(self, params, x):
+        cfg = self.cfg
+        x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        w = (params["embed/tokens"].T if cfg.tie_embeddings
+             else params["unembed"])
+        logits = common.matmul(x, w).float()
+        if cfg.final_softcap is not None:
+            logits = common.softcap(logits, cfg.final_softcap)
+        return logits
+
+    def _encode(self, params, frames):
+        """Audio encoder over precomputed frame embeddings (frontend stub)."""
+        cfg = self.cfg
+        x = frames + params["enc_pos"][None, : frames.shape[1]].to(frames.dtype)
+        pos = torch.arange(frames.shape[1], device=frames.device)[None].expand(
+            frames.shape[:2])
+        ectx = {"positions": pos, "kv_src": None}
+        x, _ = self._run_groups(params, x, ectx, _enc_pattern(cfg), "enc")
+        return common.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    def _context(self, params, batch, seq_len):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        pos = torch.arange(seq_len, device=tokens.device)[None].expand(
+            tokens.shape[0], seq_len)
+        kv_src = None
+        if cfg.family == "audio":
+            kv_src = self._encode(params, batch["frames"])
+        elif cfg.family == "vlm":
+            kv_src = batch["images"]
+        return {"positions": pos, "kv_src": kv_src}
+
+    # -- training loss -----------------------------------------------------------
+
+    def loss(self, params, batch):
+        """batch: tokens (B,S) int, labels (B,S) int (-1 = masked)."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        x = self._embed(params, tokens)
+        ctx = self._context(params, batch, tokens.shape[1])
+        x, aux = self._run_groups(params, x, ctx, cfg.pattern, "dec")
+        logits = self._head(params, x)
+        mask = (labels >= 0).float()
+        labels_safe = torch.clamp(labels, min=0)
+        logp = F.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+        ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    # -- serving -----------------------------------------------------------------
+
+    def cache_spec(self, batch: int, smax: int, dtype):
+        """A list per group of ``{bkey: {name: TensorSpec}}``, each tensor
+        stacked on a leading layer axis (``repro``'s layout)."""
+        cfg = self.cfg
+
+        def stacked(spec, repeat):
+            if isinstance(spec, dict):
+                return {k: stacked(v, repeat) for k, v in spec.items()}
+            return TensorSpec((repeat, *spec.shape), spec.dtype)
+
+        return [{f"b{bi}:{kind}": stacked(
+                    blocks.block_cache_spec(cfg, kind, batch, smax, dtype),
+                    repeat)
+                 for bi, kind in enumerate(kinds)}
+                for repeat, kinds in cfg.pattern]
+
+    def init_cache(self, batch: int, smax: int, dtype):
+        def zeros(spec):
+            if isinstance(spec, dict):
+                return {k: zeros(v) for k, v in spec.items()}
+            return torch.zeros(spec.shape, dtype=spec.dtype,
+                               device=self.device)
+
+        return [zeros(group) for group in self.cache_spec(batch, smax, dtype)]
+
+    @torch.no_grad()
+    def decode_step(self, params, caches, token, pos, kv_ctx=None):
+        """token: (B,) int; pos: int. Returns (logits (B,V), caches).
+
+        ``caches`` (``cache_spec``'s layout) are updated in place at ``pos``
+        and returned; the cross-attention caches in them are static (written
+        by prefill).
+        """
+        cfg = self.cfg
+        pos = int(pos)
+        x = self._embed(params, token[:, None])
+        ctx = {"pos": pos, "kv_src": kv_ctx}
+        for gi, (repeat, kinds) in enumerate(cfg.pattern):
+            for li in range(repeat):
+                layer = self._layer_params(params, "dec", gi, li)
+                for bi, kind in enumerate(kinds):
+                    bkey = f"b{bi}:{kind}"
+                    x, _ = blocks.decode_block(
+                        cfg, kind, layer[bkey], x,
+                        _layer_view(caches[gi][bkey], li), ctx)
+        logits = self._head(params, x[:, 0])
+        return logits, caches
+
+    @torch.no_grad()
+    def prefill(self, params, batch, smax, cache_dtype=None):
+        """Run the full prompt, return (last-token logits, filled caches).
+
+        The caches are allocated first (zeros of ``smax``, in
+        ``cache_dtype`` or the embedding's dtype) and each layer writes its
+        payload as it runs, so no layer's payload outlives it.
+        """
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        dtype = cache_dtype or params["embed/tokens"].dtype
+        caches = self.init_cache(b, smax, dtype)
+
+        def sink(gi, li, bkey, kind, payload):
+            _payload_to_cache(cfg, kind, payload,
+                              _layer_view(caches[gi][bkey], li), s)
+
+        x = self._embed(params, tokens)
+        ctx = self._context(params, batch, s)
+        x, _ = self._run_groups(params, x, ctx, cfg.pattern, "dec", sink)
+        logits = self._head(params, x[:, -1])
+        return logits, caches
+
+
+def _scatter_seq(cache_arr, kv, s):
+    """kv: (B, S, ...) -> written at positions [0, S) of one layer's cache
+    (B, Smax, ...), in the cache's dtype."""
+    cache_arr[:, :s] = kv.to(cache_arr.dtype)
+    return cache_arr
+
+
+def _payload_to_cache(cfg, kind, payload, cache, s):
+    """Write one layer's prefill payload into its cache views."""
+    if kind in ("attn", "attn_local", "attn_bidir"):
+        k, v = payload
+        return {"k": _scatter_seq(cache["k"], k, s),
+                "v": _scatter_seq(cache["v"], v, s)}
+    if kind == "cross":
+        k, v = payload
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+        return cache
+    if kind == "dec_cross":
+        (k, v), (kx, vx) = payload
+        cache["cross"]["k"].copy_(kx)
+        cache["cross"]["v"].copy_(vx)
+        return {
+            "self": {"k": _scatter_seq(cache["self"]["k"], k, s),
+                     "v": _scatter_seq(cache["self"]["v"], v, s)},
+            "cross": cache["cross"],
+        }
+    raise blocks._unported(kind)

@@ -777,3 +777,58 @@ def test_two_device_mesh_solve_is_bitwise_its_plain_versions_per_shard(
         gpu.magnitudes.cpu(), cpu.magnitudes,
         **(dict(rtol=1e-4, atol=1e-7) if dtype == torch.float64
            else dict(rtol=0.0, atol=2e-3)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "whisper-large-v3"])
+def test_lm_prefill_decode_on_the_card(cuda_device, arch, dtype):
+    """The reduced model on the card against the same model on the CPU, the
+    same weights (drawn on the CPU and copied): prefill's last logits, 4
+    decode steps teacher-forced with the CPU's tokens, and every cache
+    tensor, within tests/test_torch_lm.py's tolerances against repro (3e-4
+    of max |x| in float32, 6e-2 in bfloat16)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.models import LanguageModel
+    from repro_torch.train.steps import cast_tree
+
+    tol = 3e-4 if dtype == torch.float32 else 6e-2
+    cfg = reduced_config(get_config(arch))
+    host = LanguageModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(2))
+    card = LanguageModel(cfg, device=cuda_device)
+    card.load_state_dict(host.state_dict())
+    runs = {}
+    for model in (host, card):
+        params = cast_tree(model.param_dict(), dtype)
+        batch = lm_batch(cfg, 2, 40, 2, model.device)
+        logits, caches = model.prefill(params, batch, 48)
+        runs[model.device.type] = (model, params, [logits], caches)
+    tok = runs["cpu"][2][0].argmax(-1)
+    for i in range(4):
+        for model, params, out, caches in runs.values():
+            logits, _ = model.decode_step(params, caches,
+                                          tok.to(model.device), 40 + i)
+            out.append(logits)
+        tok = runs["cpu"][2][-1].argmax(-1)
+
+    def close(got, ref, what):
+        got, ref = got.cpu().double(), ref.double()
+        assert bool(torch.isfinite(got).all()), what
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= tol, (arch, dtype, what, err)
+
+    for i, (got, ref) in enumerate(zip(runs["cuda"][2], runs["cpu"][2])):
+        close(got, ref, f"logits {i}")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for t in tree for x in leaves(t)]
+        return [tree]
+
+    for j, (got, ref) in enumerate(zip(leaves(runs["cuda"][3]),
+                                       leaves(runs["cpu"][3]))):
+        assert got.dtype == ref.dtype == dtype
+        close(got, ref, f"cache {j}")
