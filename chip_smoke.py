@@ -139,12 +139,39 @@ Phases, each of which fails the run (non-zero exit) on error:
    beside each call's bound; then ``launch/serve.py --arch gemma2-2b
    --batch 4 --prompt-len 32 --gen 16`` in a subprocess on the card: exit
    0, a 4 x 16 array of token ids, a log that names ``cuda``.  The path
-   runs no kernel of the repo: every launch count stays 0.
+   runs no kernel of the repo: every launch count stays 0;
+15. train: gemma2-2b at full published width (seeded weights drawn on the
+   card, train_4k's 4096 tokens, a global batch of 2 in 2 microbatches,
+   remat "all", float32), 3 steps of ``make_train_step`` with
+   ``EigenPre()`` over ``AdamW()`` in ``repro``'s stacked layout: every
+   loss and grad norm finite; step 1's refresh launches kernel 1 twice and
+   kernel 2 once for each of the four eligible (13, 2304) norm stacks, and
+   steps 2 and 3 launch none; each refreshed eigenpair set within phase
+   3's float32 eigenvalue gate of float64 eigh, and the same top-k of the
+   gram scaled to unit norm within 2e-3 of eigh's components |v|^2 for
+   each eigenvector 1e-2 of ||A||_2 apart from the others (as refreshed,
+   below scale 1, the signs are lost, in repro too: printed);
+   then one bfloat16 step, its loss
+   within 2% of the float32 loss at the same state and batch; step ms
+   beside its bound, tokens/s, the refresh's ms and peak memory.  At depth
+   2 and full width, 1024 tokens: float32 loss and gradients against
+   float64, remat against none, 2 microbatches against the full batch.
+   Reduced codeqwen1.5-7b, 30 EigenPre steps (rank 2, refresh every 10) on
+   the repeating batches: the loss falls by 0.5, kernels 1 and 2 launch at
+   each refresh and at no other step.  Every launch of the phase held
+   against its plain version.  Then ``launch/train.py --arch gemma2-2b
+   --reduced --eigenpre`` in subprocesses on the card: 20 steps with a
+   checkpoint every 5, ``--resume`` to 25 (exit 0, a log that names
+   ``cuda`` and resumes at step 20), and a run sent SIGTERM after 5 steps
+   (a blocking checkpoint, then ``Preempted``).
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
 run of the packed program), 7, 8, each stream of 11, each part of 12, each
-run of 13 and phase 14 and read just after, and a kernel that its path did
-not launch fails the run (phase 14: a kernel that it launched).  The records of kernels 1, 2 and 3 on the served
+run of 13, phase 14 and each step of 15 and read just after, and a kernel
+that its path did not launch fails the run (phase 14: a kernel that it
+launched; phase 15: a step that is not a refresh and launched one).  Every
+record carries its wrapper's launches in each part of phase 15
+(``train_launches``).  The records of kernels 1, 2 and 3 on the served
 paths carry the launches of phase 11's streams (``server_launches``) and of
 phase 12's in-process parts (``fleet_launches``; the worker processes'
 launches are not counted in this process); every record carries its
@@ -158,6 +185,7 @@ full float32.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -289,6 +317,44 @@ LM_LAUNCHER = ("--arch", "gemma2-2b", "--batch", str(LM_LAUNCHER_BATCH),
 #: Dense peak of the H100 SXM in bfloat16 (NVIDIA data sheet), for the
 #: bfloat16 LM run's bound.
 PEAK_BF16 = 989e12
+#: Phase 15, the trainer.  gemma2-2b at full width: train_4k's sequence,
+#: a global batch of TRAIN_BATCH (cut from 256) in TRAIN_MICRO
+#: microbatches, EigenPre() over AdamW(), float32 compute, remat "all" (the
+#: config's), TRAIN_STEPS steps, then one step in bfloat16 whose loss must
+#: be within TRAIN_BF16_TOL (relative) of the float32 loss at the same
+#: state and batch.  Each refreshed eigenpair set is held against float64
+#: eigh of its gram at phase 3's float32 eigenvalue gate; its eigenvectors
+#: lose their signs on grams far below scale 1, in repro too (ROADMAP.md
+#: Queue 3), so the same engine's top-k of the gram scaled to unit norm is
+#: held instead: the components |v[i, j]|^2 of each eigenvector whose
+#: eigenvalue is TRAIN_GAP_MIN of ||A||_2 apart from every other within
+#: TRAIN_COMPONENT_TOL of eigh's, the engine's float32 component tolerance
+#: (tests/test_torch_engine.py); float32 cannot resolve closer ones.  Both packages' float32 EEI projectors are
+#: 1e-5 to 1.1e-3 from float64 eigh on seeded 12 x 12 to 64 x 64 grams
+#: (tests/test_torch_optim.py).
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 2, 2, 3
+TRAIN_BF16_TOL, TRAIN_COMPONENT_TOL, TRAIN_GAP_MIN = 0.02, 2e-3, 1e-2
+#: The gates at depth 2 (one (attn_local, attn) group) and full width,
+#: TRAIN_GATE_SEQ tokens a sequence: the float32 loss within
+#: TRAIN_F64_LOSS_TOL (relative) and every gradient within
+#: TRAIN_F64_GRAD_TOL of its leaf's max |g| of a float64 run of the same
+#: weights; remat "all" against no remat within TRAIN_REMAT_TOL of max |g|
+#: (float32 rounding of a recompute; printed); microbatched against full
+#: batch at repro's rtol 2e-4, atol 2e-5 (tests/test_distribution.py:209).
+TRAIN_GATE_SEQ = 1024
+TRAIN_F64_LOSS_TOL, TRAIN_F64_GRAD_TOL, TRAIN_REMAT_TOL = 1e-5, 1e-3, 1e-6
+#: Reduced codeqwen1.5-7b on repro's repeating batches (tests/test_system.py
+#: _train: sequences of 16, batch 4, batch i % 4): EigenPre(AdamW(lr=3e-3,
+#: weight_decay=0), rank=2, refresh_every=10), TRAIN_REDUCED_STEPS steps;
+#: the loss must fall by at least TRAIN_REDUCED_DROP.
+TRAIN_REDUCED_STEPS, TRAIN_REDUCED_DROP = 30, 0.5
+#: The launcher: reduced gemma2-2b with EigenPre, TRAIN_LAUNCHER_STEPS
+#: steps with a checkpoint every TRAIN_LAUNCHER_EVERY, resumed to
+#: TRAIN_LAUNCHER_RESUME_TO; then a long run sent SIGTERM after
+#: TRAIN_SIGTERM_AFTER logged steps.
+TRAIN_LAUNCHER_STEPS, TRAIN_LAUNCHER_EVERY = 20, 5
+TRAIN_LAUNCHER_RESUME_TO, TRAIN_SIGTERM_AFTER = 25, 5
+TRAIN_LAUNCHER_TIMEOUT_S = 300
 
 
 class PhaseError(RuntimeError):
@@ -384,6 +450,11 @@ def main() -> int:
         r["sharded_launches"] = {tag: counts[kind]
                                  for tag, counts in sharded.items()}
     _phase_lm(torch, dev)
+    train, _ = _phase_train(torch, dev)
+    for r in records:
+        kind = r["name"].split("[")[0]
+        r["train_launches"] = {part: counts[kind]
+                               for part, counts in train.items()}
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -4163,6 +4234,475 @@ def _phase_lm(torch, dev):
           f"decode); {card}")
     print(f"[timing] the LM phase took {time.perf_counter() - t_phase:.1f} s"
           f" ({card})")
+
+
+def _train_bound(model, seqs: int, seq: int, n_micro: int, peak: float):
+    """The least time of one training step of ``seqs`` sequences of ``seq``
+    tokens in ``n_micro`` microbatches: the larger of its operations over
+    ``peak`` and its bytes over PEAK_BYTES.  Operations, per token: 2 x the
+    weights of every product (the layers' matrices and the head) forward,
+    twice that backward, once more for the layers' products under remat
+    (the recompute); attention 4 x heads x head_dim for every (query, key)
+    pair the masks let through, forward, twice that backward and once more
+    under remat.  Bytes: the optimizer's pass (parameter, gradient and
+    float32 ``v`` read and written, bfloat16 ``m`` read and written), every
+    float32 weight read by each microbatch's forward, backward and
+    recompute, the float32 logits written and read back.  Returns
+    ``(ms, "bytes" or "operations", operations, bytes)``."""
+    import math
+
+    cfg = model.cfg
+    tokens = seqs * seq
+    layers = head = 0
+    for name, decl in model.layer_table().items():
+        size = math.prod(decl.shape)
+        if name == "unembed" or (name == "embed/tokens"
+                                 and cfg.tie_embeddings):
+            head += size
+        elif name.startswith("dec/") and len(decl.shape) > 1:
+            layers += size
+    passes = 3 + (1 if cfg.remat else 0)
+    ops = 2 * tokens * (3 * head + passes * layers)
+    window = cfg.window or float("inf")
+    for kind in [k for r, ks in cfg.pattern for _ in range(r) for k in ks]:
+        w = window if kind == "attn_local" else float("inf")
+        pairs = sum(min(q + 1, w) for q in range(seq))
+        ops += passes * 4 * seqs * cfg.n_heads * cfg.resolved_head_dim * pairs
+    n = model.n_params()
+    nbytes = (n * (4 + 4 + 4 + 2) * 2 + n * 4 * passes * n_micro
+              + 2 * tokens * cfg.vocab_size * 4)
+    by_ops, by_bytes = ops / peak, nbytes / PEAK_BYTES
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes", ops, nbytes)
+
+
+def _train_counted(torch, tag, fn, capture, streams, launches):
+    """One counted run (``_run_counted``) of a step: its launches recorded
+    under ``tag`` and kept for the check against the plain versions.
+    Returns ``(fn's output, the counts, the wall ms)``."""
+    calls, plain = capture
+    t = time.perf_counter()
+    out, counts, got, _ = _run_counted(torch, "train", tag, fn, calls, plain,
+                                       loggers=())
+    wall = (time.perf_counter() - t) * 1e3
+    launches[tag] = counts
+    if any(got.values()):
+        streams[tag] = dict(calls=got, counts=counts)
+    return out, counts, wall
+
+
+def _check_refresh(torch, key, gram, lam, vecs, opt):
+    """One refreshed eigenpair set (the rows the solve filled) against
+    float64 eigh of the matrix the refresh solved (``a = gram + eps I`` in
+    float32): eigenvalues within phase 3's float32 gate (2e-4 of ||A||_2)
+    and unit norms within 1e-4.  Its eigenvectors are not held to eigh's:
+    EigenPre's grams lie far below scale 1, where repro's sign recovery
+    (``tridiagonal_signs``: an off-diagonal under eps * max(scale, 1)
+    takes sign +1) loses the signs, in both packages alike (ROADMAP.md
+    Queue 3).  So the distances of its components ``|v[i, j]|^2``, its
+    rank-k projector and its residual from eigh's are printed, and the
+    same engine's top-k of ``a`` scaled by a power of two to a spectral
+    norm near 1 (the same eigenvectors) is held instead: the components of
+    each eigenvector whose eigenvalue lies at least TRAIN_GAP_MIN of
+    ||A||_2 from every other within TRAIN_COMPONENT_TOL of eigh's (closer
+    ones are beyond float32: a gram of ~1e-10 under ``eps I = 1e-6 I``
+    keeps a few bits of itself).  Returns the distances."""
+    d = gram.shape[0]
+    k = min(opt.rank, d)
+    a = gram + opt.eps * torch.eye(d, dtype=gram.dtype, device=gram.device)
+    lam, vecs = lam[opt.rank - k:].double(), vecs[opt.rank - k:].double()
+    w, v_ref = torch.linalg.eigh(a.double())
+    top = v_ref[:, -k:]
+    norm2 = float(w.abs().max())
+    lam_err = float((lam - w[-k:]).abs().max()) / norm2
+    nrm = float((vecs.norm(dim=-1) - 1).abs().max())
+    check(lam_err <= 2e-4 and nrm <= 1e-4, f"train refresh {key}: "
+          f"eigenvalue error {lam_err:.3e} of ||A||_2 (limit 2e-4), norms "
+          f"off by {nrm:.3e} (limit 1e-4)")
+    comp = float((vecs.square() - top.T.square()).abs().max())
+    proj = float((vecs.T @ vecs - top @ top.T).abs().max())
+    res = float((a.double() @ vecs.T - vecs.T * lam).norm(dim=0).max()
+                / a.double().norm())
+    scaled = opt._engine(a.device).topk(a * 2.0 ** -round(math.log2(norm2)),
+                                        k).vectors.double()
+    gaps = torch.stack([(w[-k:][i] - torch.cat([w[:d - k + i],
+                                                w[d - k + i + 1:]])).abs()
+                        .min() for i in range(k)]) / norm2
+    apart = gaps >= TRAIN_GAP_MIN
+    row_err = (scaled.square() - top.T.square()).abs().amax(dim=-1)
+    comp1 = float(row_err[apart].max()) if bool(apart.any()) else 0.0
+    check(comp1 <= TRAIN_COMPONENT_TOL, f"train refresh {key}: at unit "
+          f"scale the components of the eigenvectors {apart.tolist()} "
+          f"apart by {TRAIN_GAP_MIN:g} of ||A||_2 are {comp1:.3e} from "
+          f"eigh's (limit {TRAIN_COMPONENT_TOL:g}); eigenvalues {w.tolist()}")
+    print(f"[train] refresh {key}: eigenvalues {lam.tolist()}, relative gaps"
+          f" {[f'{g:.2e}' for g in gaps.tolist()]}; at unit scale, "
+          f"components |v|^2 from eigh's by row {[f'{e:.2e}' for e in row_err.tolist()]}"
+          f" (gated where the gap is at least {TRAIN_GAP_MIN:g})")
+    return lam_err, comp1, comp, proj, res
+
+
+def _train_gemma(torch, dev, card, capture, streams, launches):
+    """gemma2-2b at full width: TRAIN_STEPS float32 steps with EigenPre,
+    then one bfloat16 step.  Returns the step record for the JSON line."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import EigenPre
+    from repro_torch.train import TrainState, make_train_step, put_batch
+
+    cfg = get_config("gemma2-2b")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    params = model.stacked_dict()
+    opt = EigenPre()
+    eligible = sorted(k for k, p in params.items() if opt._eligible(p))
+    check(eligible == sorted(f"dec/g0/{b}/{ln}" for b in (
+        "b0:attn_local", "b1:attn") for ln in ("ln1", "ln2"))
+        and all(tuple(params[k].shape) == (13, 2304) for k in eligible),
+        f"train: EigenPre's eligible gemma2-2b parameters {eligible}")
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    source = make_synthetic(cfg, ShapeConfig("train_4k", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"), seed=SEED)
+    step32 = make_train_step(model, opt, torch.float32,
+                             microbatch=TRAIN_MICRO)
+    torch.cuda.synchronize()
+    print(f"[train] gemma2-2b: {model.n_params()} parameters drawn on the "
+          f"card in {time.perf_counter() - t:.2f} s; EigenPre eligible: "
+          f"{eligible}, each (13, 2304)")
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, gnorms, refreshed = [], [], [], {}
+    for i in range(TRAIN_STEPS):
+        batch = put_batch(source.global_batch_at(i), dev)
+        tag = f"gemma2-2b step {i + 1}"
+        (state, metrics), counts, wall = _train_counted(
+            torch, tag, lambda: step32(state, batch), capture, streams,
+            launches)
+        walls.append(wall)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        check(all(map(math.isfinite, (losses[-1], gnorms[-1]))),
+              f"{tag}: loss {losses[-1]}, grad norm {gnorms[-1]}")
+        want = (2 * len(eligible), len(eligible)) if i == 0 else (0, 0)
+        check((counts["sturm_bisect"], counts["logabs_sum"]) == want
+              and counts["sturm_segmented"] == 0,
+              f"{tag}: launches {counts}, expected (kernel 1, kernel 2) "
+              f"{want}")
+        if i == 0:
+            refreshed = {k: (state.opt_state.gram[k],
+                             state.opt_state.eigvals[k],
+                             state.opt_state.eigvecs[k]) for k in eligible}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    worst = [max(x) for x in zip(*(_check_refresh(torch, k, *v, opt)
+                                   for k, v in refreshed.items()))]
+    norms = [float(torch.linalg.eigvalsh(g.double()).abs().max())
+             for g, _, _ in refreshed.values()]
+    grams = [state.opt_state.gram[k] for k in eligible]
+
+    def refresh():
+        for g in grams:
+            opt._topk(g)
+
+    refresh_ms = _events_ms(torch, refresh, 1, 5)
+    bound_ms, bound_by, ops, nbytes = _train_bound(
+        model, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, PEAK_OPS["float32"])
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] gemma2-2b float32, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{TRAIN_MICRO} microbatches, remat {cfg.remat_policy}, EigenPre: "
+          f"losses {losses}, grad norms {gnorms}; step ms "
+          + ", ".join(f"{w:.1f}" for w in walls)
+          + f" (step 1 refreshes) against a bound of {bound_ms:.1f} ms by "
+          f"{bound_by} ({ops / 1e12:.2f} TFLOP, {nbytes / 1e9:.1f} GB), "
+          f"{tokens * 1e3 / steady:.1f} tokens/s at the median of steps "
+          f"2-{TRAIN_STEPS}; the refresh ({len(eligible)} top-{opt.rank} "
+          f"solves of {sorted({tuple(g.shape) for g in grams})} float32 "
+          f"grams) {refresh_ms:.3f} ms by CUDA events; peak memory {peak_gb:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); {card}")
+    print(f"[train] step 1's refreshes against float64 eigh: worst "
+          f"eigenvalue error {worst[0]:.3e} of ||A||_2 (limit 2e-4); the "
+          f"grams' spectral norms {min(norms):.3e} to {max(norms):.3e}; at "
+          f"unit scale the components |v|^2 of eigenvectors apart by "
+          f"{TRAIN_GAP_MIN:g} {worst[1]:.3e} from eigh's (limit "
+          f"{TRAIN_COMPONENT_TOL:g}); as refreshed (not gated, signs lost "
+          f"below scale 1): components {worst[2]:.3e}, rank-{opt.rank} "
+          f"projector {worst[3]:.3e}, residual {worst[4]:.3e} of ||A||_F")
+
+    # One bfloat16 step against the float32 loss at the same state and
+    # batch (a no-grad pass over the same microbatches).
+    batch = put_batch(source.global_batch_at(TRAIN_STEPS), dev)
+    rows = TRAIN_BATCH // TRAIN_MICRO
+    with torch.no_grad():
+        ref = sum(float(model.loss(model.unstack(state.params), {
+            k: v[i * rows:(i + 1) * rows] for k, v in batch.items()})[0])
+            for i in range(TRAIN_MICRO)) / TRAIN_MICRO
+    step16 = make_train_step(model, opt, torch.bfloat16,
+                             microbatch=TRAIN_MICRO)
+    (state, m16), counts, wall16 = _train_counted(
+        torch, "gemma2-2b bfloat16 step", lambda: step16(state, batch),
+        capture, streams, launches)
+    loss16 = float(m16["loss"])
+    rel = abs(loss16 - ref) / abs(ref)
+    check(math.isfinite(float(m16["grad_norm"])) and rel <= TRAIN_BF16_TOL
+          and not any(counts.values()),
+          f"gemma2-2b bfloat16 step: loss {loss16} vs float32 {ref} "
+          f"({rel:.3e}, limit {TRAIN_BF16_TOL:g}), launches {counts}")
+    print(f"[train] gemma2-2b bfloat16 step {TRAIN_STEPS + 1}: loss "
+          f"{loss16:.6f} vs float32 {ref:.6f} at the same state and batch "
+          f"({rel:.3e} relative, limit {TRAIN_BF16_TOL:g}); {wall16:.1f} ms; "
+          f"{card}")
+    return dict(ms=steady, walls=walls, bound_ms=bound_ms, bound_by=bound_by,
+                tokens_per_s=tokens * 1e3 / steady, refresh_ms=refresh_ms,
+                peak_gb=peak_gb, bf16_ms=wall16)
+
+
+def _rel_leaf(torch, got, ref) -> float:
+    ref = ref.double()
+    return float((got.double() - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-30))
+
+
+def _train_gates(torch, dev, card):
+    """gemma2-2b at full width and depth 2, TRAIN_GATE_SEQ tokens: float32
+    against float64, remat against none, microbatched against full batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.train import put_batch
+    from repro_torch.train.microbatch import accumulated_grads
+
+    torch.cuda.empty_cache()
+    base = dataclasses.replace(get_config("gemma2-2b"), n_layers=2,
+                               pattern=((1, ("attn_local", "attn")),))
+    batch = put_batch(make_synthetic(base, ShapeConfig(
+        "t", TRAIN_GATE_SEQ, TRAIN_BATCH, "train"), seed=SEED)
+        .global_batch_at(0), dev)
+    models = {remat: LanguageModel(base.scaled(remat=remat), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+        for remat in (True, False)}
+
+    def grads(model, n_micro=1):
+        loss, _, g = accumulated_grads(
+            lambda p, b: model.loss(model.unstack(p), b),
+            model.stacked_dict(), batch, n_micro)
+        return float(loss), g
+
+    loss_r, g_r = grads(models[True])
+    loss_n, g_n = grads(models[False])
+    loss_m, g_m = grads(models[True], TRAIN_MICRO)
+    plain = models[False]
+    leaves = {k: p.detach().double().requires_grad_()
+              for k, p in plain.stacked_dict().items()}
+    loss64, _ = plain.loss(plain.unstack(leaves), batch)
+    loss64.backward()
+    g64 = {k: v.grad for k, v in leaves.items()}
+    loss64 = float(loss64.detach())
+    rel_loss = abs(loss_n - loss64) / abs(loss64)
+    err64 = max((_rel_leaf(torch, g_n[k], g64[k]), k) for k in g64)
+    err_remat = max((_rel_leaf(torch, g_r[k], g_n[k]), k) for k in g_n)
+    check(rel_loss <= TRAIN_F64_LOSS_TOL and err64[0] <= TRAIN_F64_GRAD_TOL,
+          f"train depth 2: float32 loss {loss_n} vs float64 {loss64} "
+          f"({rel_loss:.3e}), worst gradient {err64}")
+    check(loss_r == loss_n and err_remat[0] <= TRAIN_REMAT_TOL,
+          f"train depth 2: remat loss {loss_r} vs {loss_n}, worst gradient "
+          f"{err_remat}")
+    micro = 0.0
+    for k in g_r:
+        diff = (g_m[k] - g_r[k]).abs()
+        bound = 2e-5 + 2e-4 * g_r[k].abs()
+        check(bool((diff <= bound).all()), f"train depth 2: microbatched "
+              f"gradient {k} off by {float((diff - bound).max()):.3e} beyond "
+              f"rtol 2e-4, atol 2e-5")
+        micro = max(micro, float(diff.max()))
+    check(abs(loss_m - loss_r) <= 1e-5 * abs(loss_r),
+          f"train depth 2: microbatched loss {loss_m} vs {loss_r}")
+    print(f"[train] gemma2-2b at depth 2, full width, {TRAIN_BATCH} x "
+          f"{TRAIN_GATE_SEQ} tokens: float32 loss {loss_n:.6f} vs float64 "
+          f"{loss64:.6f} ({rel_loss:.3e} relative, limit "
+          f"{TRAIN_F64_LOSS_TOL:g}); worst float32 gradient {err64[0]:.3e} "
+          f"of max |g| from float64 ({err64[1]}; limit "
+          f"{TRAIN_F64_GRAD_TOL:g}); remat all vs none: loss equal, worst "
+          f"gradient {err_remat[0]:.3e} of max |g| (limit "
+          f"{TRAIN_REMAT_TOL:g}); {TRAIN_MICRO} microbatches vs the full "
+          f"batch: max |diff| {micro:.3e} (rtol 2e-4, atol 2e-5); {card}")
+
+
+def _train_reduced(torch, dev, card, capture, streams, launches):
+    """Reduced codeqwen1.5-7b, TRAIN_REDUCED_STEPS EigenPre steps on the
+    repeating batches: the loss falls, kernels 1 and 2 launch at every
+    refresh and at no other step."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, EigenPre
+    from repro_torch.train import TrainState, make_train_step, put_batch
+
+    cfg = reduced_config(get_config("codeqwen1.5-7b"))
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    opt = EigenPre(adamw=AdamW(lr=3e-3, weight_decay=0.0), rank=2,
+                   refresh_every=10)
+    params = model.stacked_dict()
+    eligible = [k for k, p in params.items() if opt._eligible(p)]
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    step = make_train_step(model, opt, torch.float32)
+    source = make_synthetic(cfg, ShapeConfig("t", 16, 4, "train"), seed=0)
+    losses, refreshes = [], 0
+    for i in range(TRAIN_REDUCED_STEPS):
+        batch = put_batch(source.global_batch_at(i % 4), dev)
+        refresh = i % opt.refresh_every == 0
+        tag = f"codeqwen reduced step {i + 1}"
+        (state, metrics), counts, _ = _train_counted(
+            torch, tag, lambda: step(state, batch), capture, streams,
+            launches)
+        want = (2 * len(eligible), len(eligible)) if refresh else (0, 0)
+        check((counts["sturm_bisect"], counts["logabs_sum"]) == want,
+              f"{tag}: launches {counts}, expected {want}")
+        refreshes += refresh
+        losses.append(float(metrics["loss"]))
+    check(all(map(math.isfinite, losses))
+          and losses[-1] < losses[0] - TRAIN_REDUCED_DROP,
+          f"codeqwen reduced: losses {losses[::6]}")
+    print(f"[train] reduced codeqwen1.5-7b, {TRAIN_REDUCED_STEPS} EigenPre "
+          f"steps (rank 2, refresh every 10; eligible {eligible}): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (must fall by "
+          f"{TRAIN_REDUCED_DROP:g}); kernels 1 and 2 launched at each of the "
+          f"{refreshes} refreshes and at no other step; {card}")
+
+
+def _train_launcher(torch, card):
+    """``launch/train.py`` in subprocesses on the card: a run with
+    checkpoints, its resume, and a run sent SIGTERM mid-stream."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train-", dir=root / "build"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "gemma2-2b", "--reduced", "--eigenpre"]
+    try:
+        ckpt = work / "run"
+        args = cmd + ["--ckpt-dir", str(ckpt), "--ckpt-every",
+                      str(TRAIN_LAUNCHER_EVERY), "--log-every",
+                      str(TRAIN_LAUNCHER_EVERY)]
+        logs = []
+        for extra in (["--steps", str(TRAIN_LAUNCHER_STEPS)],
+                      ["--steps", str(TRAIN_LAUNCHER_RESUME_TO),
+                       "--resume"]):
+            t = time.perf_counter()
+            proc = subprocess.run(args + extra, cwd=root, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=TRAIN_LAUNCHER_TIMEOUT_S)
+            check(proc.returncode == 0, f"train launcher {extra} exited "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+            check("on cuda" in proc.stderr, f"train launcher {extra} did "
+                  f"not train on cuda: {proc.stderr[-2000:]}")
+            logs.append((extra, time.perf_counter() - t, proc.stderr))
+        resumed = logs[1][2]
+        check(f"resumed at step {TRAIN_LAUNCHER_STEPS}" in resumed
+              and f"done: {TRAIN_LAUNCHER_RESUME_TO} steps" in resumed,
+              f"train launcher --resume: {resumed[-2000:]}")
+        kept = sorted(int(p.name[5:]) for p in (ckpt / "gemma2-2b-smoke")
+                      .glob("step-*"))
+        check(kept[-1] == TRAIN_LAUNCHER_RESUME_TO and len(kept) == 3,
+              f"train launcher: checkpoints {kept}")
+        for extra, wall, log in logs:
+            for line in log.splitlines():
+                if "repro_torch.train" in line:
+                    print(f"[train] launcher {' '.join(extra)}: {line}")
+            print(f"[train] launcher {' '.join(extra)}: exit 0 in {wall:.1f} s")
+
+        # SIGTERM after TRAIN_SIGTERM_AFTER logged steps.
+        ckpt = work / "sigterm"
+        proc = subprocess.Popen(
+            cmd + ["--steps", "1000000", "--ckpt-every", "1000000",
+                   "--log-every", "1", "--ckpt-dir", str(ckpt)],
+            cwd=root, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        timer = threading.Timer(TRAIN_LAUNCHER_TIMEOUT_S, proc.kill)
+        timer.start()
+        try:
+            seen, lines = 0, []
+            for line in proc.stderr:
+                lines.append(line)
+                seen += " loss " in line
+                if seen >= TRAIN_SIGTERM_AFTER:
+                    break
+            proc.send_signal(signal.SIGTERM)
+            lines.append(proc.stderr.read())
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log = "".join(lines)
+        import re
+
+        got = re.search(r"Preempted: checkpointed at step (\d+)", log)
+        check(rc == 1 and got is not None
+              and "preemption signal 15 received" in log,
+              f"train launcher SIGTERM: exit {rc}: {log[-2000:]}")
+        at = int(got.group(1))
+        saved = ckpt / "gemma2-2b-smoke" / f"step-{at}" / "manifest.json"
+        check(at >= TRAIN_SIGTERM_AFTER and saved.exists(),
+              f"train launcher SIGTERM: no checkpoint at step {at}")
+        print(f"[train] launcher sent SIGTERM after {TRAIN_SIGTERM_AFTER} "
+              f"logged steps: a blocking checkpoint at step {at}, then "
+              f"Preempted, exit {rc}; {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_train(torch, dev):
+    """15. The trainer: gemma2-2b at full width with EigenPre (its refresh
+    launching kernels 1 and 2), the depth-2 gates, reduced codeqwen's 30
+    EigenPre steps, and ``launch/train.py`` in subprocesses.  Every launch
+    count is set to 0 just before each step and read just after; every
+    launch is held against its plain version afterwards.  Returns each
+    wrapper's launches, summed by part."""
+    card = _gpu_name_and_limit()
+    print(f"[train] phase 15 on {card}")
+    t_phase = time.perf_counter()
+    calls, plain, undo = _arm_server_capture()
+    streams, launches = {}, {}
+    try:
+        record = _train_gemma(torch, dev, card, (calls, plain), streams,
+                              launches)
+        _train_gates(torch, dev, card)
+        _train_reduced(torch, dev, card, (calls, plain), streams, launches)
+    finally:
+        undo()
+    _hold_grouped(torch, "train", streams, {key: [] for key in _PLAINS})
+    torch.cuda.empty_cache()
+    _train_launcher(torch, card)
+    parts = {"gemma2-2b step 1": ["gemma2-2b step 1"],
+             "gemma2-2b steps 2-3": [f"gemma2-2b step {i}"
+                                     for i in range(2, TRAIN_STEPS + 1)],
+             "gemma2-2b bfloat16 step": ["gemma2-2b bfloat16 step"],
+             "codeqwen reduced, 30 steps": [
+                 t for t in launches if t.startswith("codeqwen")]}
+    summed = {part: {key: sum(launches[t][key] for t in tags)
+                     for key in launches[tags[0]]}
+              for part, tags in parts.items()}
+    print(f"[train] launches by part: {summed}")
+    print(f"[timing] the train phase took {time.perf_counter() - t_phase:.1f}"
+          f" s with its checks ({card})")
+    return summed, record
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

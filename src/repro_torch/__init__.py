@@ -5,7 +5,9 @@ package imports ``torch`` and numpy, never ``jax`` or ``repro``.  Its
 layout mirrors ``repro``'s: ``linalg`` and ``core`` hold plain PyTorch,
 ``kernels`` the hand-written CUDA kernels beside their plain versions, and
 ``engine`` the ``SolverEngine``, its serving runtime and the ``sharded``
-backend on a device mesh (``launch.mesh``, ``core.distributed``).
+backend on a device mesh (``launch.mesh``, ``core.distributed``);
+``models`` the language model, and ``optim``, ``train``, ``checkpoint`` and
+``data`` its trainer, whose ``EigenPre`` runs the engine in the loop.
 """
 
 from repro_torch.engine import (  # noqa: F401

@@ -6,7 +6,10 @@ plan and maps its backend names (``pallas -> cuda``, ``jnp -> torch``,
 ``sharded -> sharded`` on a port mesh the caller gives);
 :func:`stack_from_numpy` puts a numpy stack on a device.  Both packages can
 then run the same plan on the same data.  The language model has weights:
-:func:`params_from_reference` loads ``repro``'s into the port's model.
+:func:`params_from_reference` loads ``repro``'s into the port's model,
+and :func:`train_state_from_reference` turns ``repro``'s ``TrainState``
+into the port's, so both packages can start a training step from one
+state.
 """
 
 from __future__ import annotations
@@ -73,3 +76,43 @@ def params_from_reference(model, flat: dict) -> None:
             if row is not None:
                 src = src[row]
             weights[name].copy_(torch.as_tensor(np.array(src)))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy (or JAX) array as a tensor on ``device``, bitwise; bfloat16
+    (``ml_dtypes``') through its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def train_state_from_reference(state, device):
+    """The port's ``train.steps.TrainState`` for ``repro``'s (its
+    parameters, ``AdamWState`` or ``EigenPreState`` and step, as numpy or
+    JAX arrays): every tensor on ``device`` with the array's dtype, bitwise,
+    but the optimizer's ``count`` and the ``step``, which the port keeps as
+    0-d int32 CPU tensors."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.eigenpre import EigenPreState
+    from repro_torch.train.steps import TrainState
+
+    def tree(d):
+        return {k: _tensor(v, device) for k, v in d.items()}
+
+    def count(c):
+        return torch.tensor(int(np.asarray(c)), dtype=torch.int32)
+
+    def adamw(s):
+        return AdamWState(count(s.count), tree(s.m), tree(s.v))
+
+    opt = state.opt_state
+    if getattr(opt, "_fields", None) == AdamWState._fields:
+        opt_state = adamw(opt)
+    elif getattr(opt, "_fields", None) == EigenPreState._fields:
+        opt_state = EigenPreState(adamw(opt.adamw), tree(opt.gram),
+                                  tree(opt.eigvals), tree(opt.eigvecs))
+    else:
+        raise TypeError(f"unknown optimizer state {type(opt).__name__}")
+    return TrainState(tree(state.params), opt_state, count(state.step))

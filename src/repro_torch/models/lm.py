@@ -11,16 +11,25 @@ the layer index inserted after the group (``dec/g0/3/b0:attn_local/attn/wq``
 is row 3 of ``repro``'s ``dec/g0/b0:attn_local/attn/wq``); see
 :meth:`LanguageModel.reference_names`.
 
+The per-layer parameters are views of one tensor per ``repro`` key, in
+``repro``'s stacked layout (:meth:`LanguageModel.stacked_dict`), which is
+what the trainer holds; :meth:`LanguageModel.unstack` maps such a stacked
+dict to the per-layer one with one ``torch.unbind`` a key.
+
 The methods are functional in the parameters, as ``repro``'s: each takes a
 ``{name: tensor}`` dict (:meth:`LanguageModel.param_dict`, or a cast of it
 from ``train.steps.cast_tree``).  Caches keep ``repro``'s layout (a list
 per group of ``{bkey: {"k": (L, B, Smax, Hkv, Dh), ...}}``); decode writes
-them in place.  Remat (``jax.checkpoint``) is a training concern and waits
-with the trainer.
+them in place.  Remat (``repro``'s ``jax.checkpoint`` of each layer) runs
+when ``cfg.remat`` is set and grad is enabled: ``remat_policy="dots"``
+saves the matmul outputs and recomputes the rest, any other policy
+(``"all"``, ``"none"``: save nothing) recomputes the whole layer, as
+``repro``'s ``policy=None``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -118,7 +127,11 @@ class LanguageModel(nn.Module):
         self._decls: ParamTable = {}
         # scope -> [group][layer] -> {bkey: {path within block: port name}}
         self._layers: dict[str, list[list[dict]]] = {"dec": [], "enc": []}
+        # repro key -> its tensor; each port parameter is a view of one.
+        self._stacked: dict[str, torch.Tensor] = {}
         for key, decl in param_table(cfg).items():
+            self._stacked[key] = torch.zeros(decl.shape, dtype=dtype,
+                                             device=self.device)
             scope = key.split("/", 1)[0]
             if scope not in ("dec", "enc"):
                 self._reference[key] = (key, None)
@@ -139,9 +152,11 @@ class LanguageModel(nn.Module):
                     layers[gi].append({})
                 layers[gi][li].setdefault(bkey, {})[path] = name
         self.weights = nn.ParameterDict({
-            name: nn.Parameter(torch.zeros(decl.shape, dtype=dtype,
-                                           device=self.device))
-            for name, decl in sorted(self._decls.items())})
+            name: nn.Parameter(self._row(*self._reference[name]))
+            for name in sorted(self._decls)})
+
+    def _row(self, key: str, row: int | None) -> torch.Tensor:
+        return self._stacked[key] if row is None else self._stacked[key][row]
 
     # -- parameters ------------------------------------------------------------
 
@@ -161,6 +176,28 @@ class LanguageModel(nn.Module):
     def param_dict(self) -> dict[str, torch.Tensor]:
         """``{port name: parameter}``, the argument of the methods below."""
         return dict(self.weights.items())
+
+    def stacked_dict(self) -> dict[str, torch.Tensor]:
+        """``{repro key: tensor}`` in ``repro``'s stacked layout (layer groups
+        on a leading axis); :meth:`param_dict`'s parameters are views of
+        these tensors."""
+        return dict(self._stacked)
+
+    def unstack(self, stacked: dict) -> dict[str, torch.Tensor]:
+        """A dict in :meth:`stacked_dict`'s layout as the per-layer dict the
+        methods take.  Each stacked tensor is unbound once (its backward is
+        one ``stack``; indexing it a layer at a time would allocate a
+        zero-filled gradient of the whole stack for every layer)."""
+        rows = {}
+        out = {}
+        for name, (key, row) in self._reference.items():
+            if row is None:
+                out[name] = stacked[key]
+                continue
+            if key not in rows:
+                rows[key] = torch.unbind(stacked[key])
+            out[name] = rows[key][row]
+        return out
 
     def n_params(self) -> int:
         return num_params(self.param_table())
@@ -183,19 +220,34 @@ class LanguageModel(nn.Module):
 
     def _run_groups(self, params, x, ctx, pattern, scope, sink=None):
         """Every layer of ``pattern`` in order; ``sink(gi, li, bkey, kind,
-        kv)`` receives each block's cache payload."""
+        kv)`` receives each block's cache payload.  Each layer is
+        checkpointed (remat) when ``cfg.remat`` is set, grad is enabled and
+        no payload is wanted."""
         cfg = self.cfg
+        remat = cfg.remat and sink is None and torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, (repeat, kinds) in enumerate(pattern):
             for li in range(repeat):
                 layer = self._layer_params(params, scope, gi, li)
-                for bi, kind in enumerate(kinds):
-                    bkey = f"b{bi}:{kind}"
-                    x, aux, kv = blocks.apply_block(cfg, kind, layer[bkey], x,
-                                                    ctx)
-                    aux_total = aux_total + aux
-                    if sink is not None:
-                        sink(gi, li, bkey, kind, kv)
+                if remat:
+                    x, aux = _checkpoint(cfg.remat_policy, self._layer, layer,
+                                         kinds, x, ctx)
+                else:
+                    x, aux = self._layer(layer, kinds, x, ctx, sink, gi, li)
+                aux_total = aux_total + aux
+        return x, aux_total
+
+    def _layer(self, layer, kinds, x, ctx, sink=None, gi=0, li=0):
+        """One layer of a group: its blocks in order (``repro``'s scan
+        body).  Returns ``(x, aux)``."""
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for bi, kind in enumerate(kinds):
+            bkey = f"b{bi}:{kind}"
+            x, aux, kv = blocks.apply_block(self.cfg, kind, layer[bkey], x,
+                                            ctx)
+            aux_total = aux_total + aux
+            if sink is not None:
+                sink(gi, li, bkey, kind, kv)
         return x, aux_total
 
     # -- embedding / head -------------------------------------------------------
@@ -329,6 +381,29 @@ class LanguageModel(nn.Module):
         x, _ = self._run_groups(params, x, ctx, cfg.pattern, "dec", sink)
         logits = self._head(params, x[:, -1])
         return logits, caches
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy (``jax.checkpoint_policies.checkpoint_dots``):
+    save what the matrix products output, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(policy: str, fn, *args):
+    """``fn(*args)`` under activation checkpointing: ``policy="dots"``
+    saves the matrix products' outputs, any other saves nothing."""
+    from torch.utils import checkpoint
+
+    kwargs = {}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 def _scatter_seq(cache_arr, kv, s):

@@ -1,10 +1,13 @@
-"""Serving-runtime support: deterministic fault injection, retry and
-restart schedules, straggler detection, rendezvous routing and elastic
-meshes (the ported part of ``repro.runtime``; its training supervisor and
-``reshard_state`` wait with the trainer)."""
+"""Runtime support: deterministic fault injection, retry and restart
+schedules, the training supervisor, straggler detection, rendezvous
+routing and elastic meshes (the ported part of ``repro.runtime``;
+``reshard_state`` waits with the sharded LM)."""
 
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
+    Preempted,
     RestartPolicy,
+    Supervisor,
+    SupervisorConfig,
     decorrelated_jitter,
 )
 from repro_torch.runtime.straggler import StragglerWatchdog  # noqa: F401

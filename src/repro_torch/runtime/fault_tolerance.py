@@ -1,18 +1,35 @@
-"""Retry and restart schedules for the serving runtime.
+"""Fault tolerance: retry schedules and supervised training.
 
-The port's part of ``repro.runtime.fault_tolerance``:
+The twin of ``repro.runtime.fault_tolerance``:
 :func:`decorrelated_jitter`, which ``engine.server`` retries transient
-dispatch failures with, and :class:`RestartPolicy`, which ``engine.fleet``
-restarts dead replicas with.  ``repro``'s training ``Supervisor`` (with
-``SupervisorConfig`` and ``Preempted``) needs the checkpoint manager and is
-not ported.
+dispatch failures with; :class:`RestartPolicy`, which ``engine.fleet``
+restarts dead replicas with; and the training :class:`Supervisor`, which
+owns the trainer's failure policy:
+
+* periodic async checkpoints (params + optimizer + data-iterator step),
+  and a blocking step-0 checkpoint before the first step;
+* SIGTERM/SIGINT = preemption notice -> blocking checkpoint, then
+  :class:`Preempted`;
+* step-level retry: a transient failure (``RuntimeError``, which CUDA
+  errors are) restores the latest checkpoint and replays; the
+  deterministic data pipeline makes the replay exact;
+* NaN/overflow quarantine: a non-finite loss rolls back to the last
+  checkpoint and skips the offending data window.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import signal
+import time
+from typing import Any, Callable
 
 import numpy as np
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+log = logging.getLogger("repro_torch.runtime")
 
 
 def decorrelated_jitter(rng: np.random.Generator, base: float, prev: float,
@@ -63,3 +80,100 @@ class RestartPolicy:
     def reset(self) -> None:
         self._prev = self.base_delay_s
         self.restarts = 0
+
+
+@dataclasses.dataclass
+class SupervisorConfig:
+    checkpoint_every: int = 50
+    max_retries: int = 3
+    nan_skip_window: int = 1  # steps to skip after a NaN rollback
+
+
+class Preempted(Exception):
+    pass
+
+
+class Supervisor:
+    def __init__(self, manager: CheckpointManager,
+                 cfg: SupervisorConfig = SupervisorConfig()):
+        self.manager = manager
+        self.cfg = cfg
+        self._preempt = False
+        self._orig_handlers = {}
+
+    def install_signal_handlers(self):
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            self._orig_handlers[sig] = signal.signal(sig, self._on_signal)
+
+    def _on_signal(self, signum, frame):
+        log.warning("preemption signal %s received", signum)
+        self._preempt = True
+
+    def run(
+        self,
+        state: Any,
+        data_iter,
+        step_fn: Callable,  # (state, batch) -> (state, metrics)
+        n_steps: int,
+        on_metrics: Callable | None = None,
+    ):
+        """Run to ``n_steps`` with retry/rollback. Returns final state."""
+        retries = 0
+        step = int(_get_step(state))
+        if self.manager.latest_step() is None:
+            # A step-0 checkpoint before the loop: a failure before the
+            # first periodic checkpoint then rolls back and replays exactly.
+            # Blocking: it must be restorable before the first step runs.
+            self.manager.save(step, state,
+                              extra={"data_step": data_iter.state()["step"]},
+                              blocking=True)
+        while step < n_steps:
+            if self._preempt:
+                self.manager.save(step, state,
+                                  extra={"data_step": data_iter.state()["step"]},
+                                  blocking=True)
+                raise Preempted(f"checkpointed at step {step}")
+            try:
+                batch = next(data_iter)
+                t0 = time.monotonic()
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
+                if not np.isfinite(loss):
+                    raise FloatingPointError(f"non-finite loss at step {step}")
+                dt = time.monotonic() - t0
+                if on_metrics:
+                    on_metrics(step, metrics, dt)
+                retries = 0
+                step += 1
+                if step % self.cfg.checkpoint_every == 0:
+                    self.manager.save(
+                        step, state,
+                        extra={"data_step": data_iter.state()["step"]})
+            except (RuntimeError, FloatingPointError) as e:
+                retries += 1
+                log.error("step %d failed (%s); retry %d/%d", step, e,
+                          retries, self.cfg.max_retries)
+                if retries > self.cfg.max_retries:
+                    raise
+                latest = self.manager.latest_step()
+                if latest is not None:
+                    state, extra = self.manager.restore(state)
+                    step = latest
+                    skip = extra.get("data_step", step)
+                    if isinstance(e, FloatingPointError):
+                        skip += self.cfg.nan_skip_window
+                    data_iter = _reset_iter(data_iter, skip)
+        self.manager.wait()
+        return state
+
+
+def _get_step(state):
+    return state.step if hasattr(state, "step") else state["step"]
+
+
+def _reset_iter(data_iter, step: int):
+    from repro_torch.data.pipeline import PrefetchIterator
+
+    data_iter.close()
+    return PrefetchIterator(data_iter.source, start_step=step,
+                            host=data_iter.host, n_hosts=data_iter.n_hosts)

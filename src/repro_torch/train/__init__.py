@@ -1,4 +1,10 @@
-"""Step functions of ``repro.train``; this slice ports the serving step
-(``make_serve_step``) and ``cast_tree``."""
+"""Step functions of ``repro.train``: the training step (``TrainState``,
+``make_train_step``, microbatching) and the serving step."""
 
-from repro_torch.train.steps import cast_tree, make_serve_step  # noqa: F401
+from repro_torch.train.steps import (  # noqa: F401
+    TrainState,
+    cast_tree,
+    make_serve_step,
+    make_train_step,
+    put_batch,
+)

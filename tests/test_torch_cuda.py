@@ -832,3 +832,54 @@ def test_lm_prefill_decode_on_the_card(cuda_device, arch, dtype):
                                        leaves(runs["cpu"][3]))):
         assert got.dtype == ref.dtype == dtype
         close(got, ref, f"cache {j}")
+
+
+def test_train_step_on_the_card(cuda_device):
+    """One reduced gemma2-2b EigenPre step on the card from the CPU's
+    state: the refresh launches kernels 1 and 2 (twice and once for each
+    eligible parameter), and the loss, the grad norm and the updated
+    parameters agree with the same step on the CPU (loss 1e-5 relative,
+    grad norm 1e-3 relative, parameters within 2 x lr: Adam's first step
+    moves each weight by about lr * sign(g), so a weight whose gradient is
+    rounding noise may step the other way)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, EigenPre
+    from repro_torch.train import TrainState, make_train_step, put_batch
+
+    cfg = reduced_config(get_config("gemma2-2b"))
+    opt = EigenPre(adamw=AdamW(lr=1e-3))
+    batch = make_synthetic(cfg, ShapeConfig("t", 32, 4, "train"),
+                           seed=1).global_batch_at(0)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        model = LanguageModel(cfg, device=dev).init(
+            torch.Generator().manual_seed(1)) if dev == "cpu" else \
+            LanguageModel(cfg, device=dev)
+        if dev != "cpu":
+            model.load_state_dict(runs["cpu"][0].state_dict())
+        params = {k: v.clone() for k, v in model.stacked_dict().items()}
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32))
+        step = make_train_step(model, opt, torch.float32, microbatch=2)
+        before = (st_kernel.sturm_bisect.launches,
+                  pd_kernel.logabs_sum.launches)
+        state, metrics = step(state, put_batch(batch, model.device))
+        launched = (st_kernel.sturm_bisect.launches - before[0],
+                    pd_kernel.logabs_sum.launches - before[1])
+        runs[str(dev)] = (model, state, metrics, launched)
+    _, host, m_host, l_host = runs["cpu"]
+    _, card, m_card, l_card = runs[str(cuda_device)]
+    eligible = [k for k, p in host.params.items() if opt._eligible(p)]
+    assert l_host == (0, 0)
+    assert l_card == (2 * len(eligible), len(eligible))
+    np.testing.assert_allclose(float(m_card["loss"]), float(m_host["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m_card["grad_norm"]),
+                               float(m_host["grad_norm"]), rtol=1e-3)
+    for k, p in host.params.items():
+        got = card.params[k].cpu()
+        assert bool(torch.isfinite(got).all()), k
+        assert float((got - p).abs().max()) <= 2 * opt.adamw.lr, k
