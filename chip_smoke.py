@@ -164,14 +164,29 @@ Phases, each of which fails the run (non-zero exit) on error:
    checkpoint every 5, ``--resume`` to 25 (exit 0, a log that names
    ``cuda`` and resumes at step 20), and a run sent SIGTERM after 5 steps
    (a blocking checkpoint, then ``Preempted``).
+16. the other block families at published width, seeded weights drawn on
+   the card: zamba2-2.7b (Mamba2 with one shared attention set) and
+   xlstm-125m (mLSTM and sLSTM) whole, B = 2 prompts of 4096 tokens, 16
+   greedy tokens, float32 and bfloat16, their float64, prefill-then-decode
+   and bfloat16 gates at full depth (xlstm) or at one period of the
+   pattern (zamba2, whose whole random-weight model is ill-conditioned:
+   printed); kimi-k2-1t-a32b and deepseek-v3-671b at one period of each
+   pattern entry with all experts, bfloat16, prompts of 2048, every logit
+   and the loss finite, their float32 gates at reduced width (a MoE's
+   prefill-then-decode against the same path in float64); the sLSTM scan
+   against autograd through its eager loop; zamba2 and xlstm trained as
+   phase 15 trains gemma2-2b (step 1's refresh launching kernels 1 and 2
+   on 40 and 9 stacked grams, each launch held against its plain
+   version), reduced kimi and deepseek for 25 AdamW steps.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
 run of the packed program), 7, 8, each stream of 11, each part of 12, each
-run of 13, phase 14 and each step of 15 and read just after, and a kernel
-that its path did not launch fails the run (phase 14: a kernel that it
-launched; phase 15: a step that is not a refresh and launched one).  Every
-record carries its wrapper's launches in each part of phase 15
-(``train_launches``).  The records of kernels 1, 2 and 3 on the served
+run of 13, phase 14, each step of 15 and 16 and 16's serving and read
+just after, and a kernel that its path did not launch fails the run
+(phase 14 and 16's serving: a kernel that it launched; phases 15 and 16:
+a step that is not a refresh and launched one).  Every record carries its
+wrapper's launches in each part of phases 15 and 16 (``train_launches``,
+``families_launches``).  The records of kernels 1, 2 and 3 on the served
 paths carry the launches of phase 11's streams (``server_launches``) and of
 phase 12's in-process parts (``fleet_launches``; the worker processes'
 launches are not counted in this process); every record carries its
@@ -357,6 +372,36 @@ TRAIN_LAUNCHER_RESUME_TO, TRAIN_SIGTERM_AFTER = 25, 5
 TRAIN_LAUNCHER_TIMEOUT_S = 300
 
 
+#: Phase 16, the other block families at their published widths.
+#: zamba2-2.7b and xlstm-125m whole: B = LM_BATCH prompts of FAM_PROMPT
+#: tokens, LM_GEN greedy tokens, float32 then bfloat16; the float64,
+#: consistency and bfloat16 (LM_BF16_TOL) gates at full depth or at one
+#: period of the pattern (FAM_GATE_WHOLE).  kimi-k2-1t-a32b and deepseek-v3-671b cannot fit the card
+#: whole: one period of each pattern entry (every kind in its published
+#: ratio, all experts; 19.97 B and 13.94 B parameters) in bfloat16, prompts
+#: of FAM_MOE_PROMPT tokens (4 routing groups of 1024, capacity drops as in
+#: a deployment), every logit and the loss finite; their gates at reduced
+#: width, prompts of FAM_REDUCED_PROMPT.  Training: zamba2 and xlstm whole
+#: as phase 15 trains gemma2-2b (TRAIN_SEQ x TRAIN_BATCH tokens in
+#: TRAIN_MICRO microbatches, remat, float32, TRAIN_STEPS EigenPre steps);
+#: kimi and deepseek at reduced width, FAM_REDUCED_STEPS AdamW steps on
+#: repro's repeating batches (tests/test_system.py), the loss falling by
+#: FAM_REDUCED_DROP.
+FAM_WHOLE = ("zamba2-2.7b", "xlstm-125m")
+#: The configs gated at full depth (_fam_serve_whole); the others at one
+#: period of the pattern.
+FAM_GATE_WHOLE = ("xlstm-125m",)
+FAM_MOE = ("kimi-k2-1t-a32b", "deepseek-v3-671b")
+FAM_PROMPT, FAM_MOE_PROMPT, FAM_REDUCED_PROMPT = 4096, 2048, 256
+FAM_REDUCED_STEPS, FAM_REDUCED_DROP = 25, 0.3
+#: The sLSTM scan against autograd through its eager loop (_fam_slstm_scan):
+#: steps, and the gradients' bound relative to each one's max |g|.
+FAM_SCAN_STEPS, FAM_SCAN_TOL = 512, 1e-5
+#: EigenPre's eligible stacked keys (2-D, at most 1024 rows): zamba2's
+#: five Mamba2 blocks' eight vectors each, (9, .); xlstm's nine, (6, .).
+FAM_ELIGIBLE = {"zamba2-2.7b": (40, 9), "xlstm-125m": (9, 6)}
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -451,10 +496,13 @@ def main() -> int:
                                  for tag, counts in sharded.items()}
     _phase_lm(torch, dev)
     train, _ = _phase_train(torch, dev)
+    families = _phase_families(torch, dev)
     for r in records:
         kind = r["name"].split("[")[0]
         r["train_launches"] = {part: counts[kind]
                                for part, counts in train.items()}
+        r["families_launches"] = {part: counts[kind]
+                                  for part, counts in families.items()}
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -3959,19 +4007,60 @@ def _lm_generate(torch, model, params, batch, prompt):
     return torch.stack(out), torch.stack(toks, 1), prefill_ms, decode_ms
 
 
+def _kind_uses(cfg, kind: str) -> int:
+    """How many positions of ``cfg.pattern`` run block ``kind``."""
+    return sum(r * ks.count(kind) for r, ks in cfg.pattern)
+
+
+def _routed(name: str) -> bool:
+    """A routed experts' stacked weight ``(experts, ., .)`` of a MoE."""
+    return "/moe/w_" in name
+
+
+def _recurrent_ops(cfg, kind: str, tokens: int, prompt: int, decode=False):
+    """Operations of a recurrent block's mixer beyond its weights'
+    products, for ``tokens`` tokens of sequences of ``prompt``: the
+    chunked GLA's within-chunk pairs (the causal half of each chunk) and
+    its chunk summaries and state reads (``decode``: the state's update
+    and read), the sLSTM's block-diagonal recurrent product; and the
+    state's float32 bytes a sequence."""
+    d = cfg.d_model
+    if kind == "slstm":
+        return 2 * tokens * d * 4 * (d // cfg.n_kv_heads), 4 * d * 4
+    if kind == "mamba":
+        h, dk, dv = 2 * d // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim
+    else:  # mlstm
+        h = cfg.n_heads
+        dk = dv = 2 * d // h
+    lc = min(cfg.ssm_chunk, prompt)
+    while prompt % lc:
+        lc //= 2
+    per = 2 * dk * dv if decode else (lc + 1) / 2 * (dk + dv) + 2 * dk * dv
+    return 2 * tokens * h * per, h * dk * dv * 4
+
+
 def _lm_bounds(model, batch: int, prompt: int, elsize: int, peak: float):
     """The least time of a prefill of ``prompt`` tokens and of a decode step
     (at the mean position of the LM_GEN - 1 steps) on the card: the larger
     of the bytes the call must move over PEAK_BYTES and its operations over
     ``peak``.  Operations: 2 x rows x weights of every product (rows: the
     tokens; the frames for the encoder and for the cross keys and values;
-    one a sequence in decode), 4 x heads x head_dim for every (query, key)
-    pair the masks let through, the head on the last token only.  Bytes:
-    every weight the call reads, once (prefill: all of them; decode: the
+    one a sequence in decode) -- a shared block's weights once for each
+    position that runs it, a MoE's routed experts' for top_k of their
+    n_experts (the work routing selects; the dense one-hot dispatch of
+    ``models/moe.py`` computes every expert's capacity slots and so does
+    more) -- 2 x heads x (qk + v dims) for every (query, key) pair the
+    masks let through (MLA's absorbed decode: 2 x heads x (2 x latent +
+    rope) a key), the recurrent mixers' chunked or stepwise work
+    (``_recurrent_ops``), the head on the last token only.  Bytes: every
+    weight the call reads, once (prefill: all of them; decode: the
     decoder's, less the cross keys' and values' projections, whose output
-    prefill left in the caches, and one embedding row a sequence unless
-    the head is the embedding), the cache positions read and written, the
-    logits.  Returns {call: (ms, "bytes" or "operations", ops, bytes)}."""
+    prefill left in the caches, one embedding row a sequence unless the
+    head is the embedding, and of the routed experts only the batch x
+    top_k a step's tokens reach, fewer if two share one), the cache
+    positions read and written (a recurrent state read and written whole
+    in decode), the logits.  Returns {call: (ms, "bytes" or "operations",
+    ops, bytes)}."""
     import math
 
     cfg = model.cfg
@@ -3985,6 +4074,8 @@ def _lm_bounds(model, batch: int, prompt: int, elsize: int, peak: float):
     for name, decl in model.layer_table().items():
         size = math.prod(decl.shape)
         pre_bytes += size * elsize
+        uses = (_kind_uses(cfg, name.split("/")[1])
+                if name.startswith("shared/") else 1)
         if name == "unembed" or (name == "embed/tokens"
                                  and cfg.tie_embeddings):
             pre_ops += 2 * batch * size
@@ -3997,10 +4088,16 @@ def _lm_bounds(model, batch: int, prompt: int, elsize: int, peak: float):
                 pre_ops += 2 * batch * cfg.enc_seq * size
         elif "/xattn/wk" in name or "/xattn/wv" in name:
             pre_ops += 2 * batch * src * size
+        elif _routed(name):
+            share = cfg.top_k / cfg.n_experts
+            pre_ops += 2 * batch * prompt * size * share
+            dec_ops += 2 * batch * size * share
+            dec_bytes += min(batch * cfg.top_k, cfg.n_experts) / (
+                cfg.n_experts) * size * elsize
         else:
             if len(decl.shape) > 1:
-                pre_ops += 2 * batch * prompt * size
-                dec_ops += 2 * batch * size
+                pre_ops += 2 * batch * prompt * size * uses
+                dec_ops += 2 * batch * size * uses
             dec_bytes += size * elsize
     kinds = [k for r, ks in cfg.pattern for _ in range(r) for k in ks]
     attend = 4 * batch * h * dh  # operations a (query, key) pair
@@ -4008,13 +4105,26 @@ def _lm_bounds(model, batch: int, prompt: int, elsize: int, peak: float):
         if kind == "attn_bidir":
             pre_ops += attend * cfg.enc_seq ** 2
             continue
+        if kind in ("mamba", "mlstm", "slstm"):
+            ops, state = _recurrent_ops(cfg, kind, batch * prompt, prompt)
+            pre_ops += ops
+            dec_ops += _recurrent_ops(cfg, kind, batch, prompt, True)[0]
+            pre_bytes += batch * state
+            dec_bytes += 2 * batch * state
+            continue
+        pair, row = attend, kv_row
+        if kind in ("mla", "mla_moe"):
+            qk, r = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.kv_lora_rank
+            pair = 2 * batch * h * (qk + cfg.v_head_dim)
+            row = (r + cfg.qk_rope_dim) * elsize
         if kind != "cross":
             w = window if kind == "attn_local" else float("inf")
-            pre_ops += attend * sum(min(q + 1, w) for q in range(prompt))
+            pre_ops += pair * sum(min(q + 1, w) for q in range(prompt))
             seen = min(pos + 1, w)
-            dec_ops += attend * seen
-            pre_bytes += batch * kv_row * prompt
-            dec_bytes += batch * kv_row * (seen + 1)
+            dec_ops += (2 * batch * h * (2 * r + cfg.qk_rope_dim) * seen
+                        if kind in ("mla", "mla_moe") else pair * seen)
+            pre_bytes += batch * row * prompt
+            dec_bytes += batch * row * (seen + 1)
         if kind in ("cross", "dec_cross"):
             pre_ops += attend * prompt * src
             dec_ops += attend * src
@@ -4031,11 +4141,11 @@ def _lm_bounds(model, batch: int, prompt: int, elsize: int, peak: float):
 
 
 def _lm_line(tag, n_params, elsize, batch, prompt, run, bounds, peak_gb,
-             card):
+             card, phase="lm"):
     _, _, prefill_ms, decode_ms = run
     (pb, pby, pops, pbytes), (db, dby, dops, dbytes) = (bounds["prefill"],
                                                          bounds["decode"])
-    print(f"[lm] {tag}: {n_params / 1e9:.3f} B parameters "
+    print(f"[{phase}] {tag}: {n_params / 1e9:.3f} B parameters "
           f"({n_params * elsize / 1e9:.2f} GB), B = {batch}, prompt {prompt},"
           f" {LM_GEN} greedy tokens; prefill {prefill_ms:.1f} ms (bound "
           f"{pb:.1f} ms by {pby}: {pops / 1e12:.2f} TFLOP, "
@@ -4046,24 +4156,30 @@ def _lm_line(tag, n_params, elsize, batch, prompt, run, bounds, peak_gb,
           f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated); {card}")
 
 
-def _lm_build(torch, dev, cfg, prompt):
-    """``cfg``'s model on the card, weights drawn there from SEED, and the
-    launcher's seeded batch of LM_BATCH prompts."""
+def _lm_build(torch, dev, cfg, prompt, dtype=None, tag="lm"):
+    """``cfg``'s model on the card (parameters of ``dtype``, float32 when
+    None), weights drawn there from SEED, and the launcher's seeded batch
+    of LM_BATCH prompts.  Prints the peak memory of the build (each
+    parameter is drawn whole in float32, then cast)."""
     from repro_torch.launch.serve import lm_batch
     from repro_torch.models import LanguageModel
 
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    model = LanguageModel(cfg, device=dev).init(
+    model = LanguageModel(cfg, device=dev, dtype=dtype or torch.float32).init(
         torch.Generator(device=dev).manual_seed(SEED))
     batch = lm_batch(cfg, LM_BATCH, prompt, SEED, dev)
     torch.cuda.synchronize()
-    print(f"[lm] {cfg.name}: {model.n_params()} parameters drawn on the card "
-          f"in {time.perf_counter() - t:.2f} s")
+    print(f"[{tag}] {cfg.name}: {model.n_params()} parameters drawn on the "
+          f"card in {time.perf_counter() - t:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
     return model, batch
 
 
-def _lm_serve(torch, model, params, batch, prompt, tag, elsize, peak, card):
+def _lm_serve(torch, model, params, batch, prompt, tag, elsize, peak, card,
+              phase="lm"):
     """A warm-up prefill, then the timed prefill and LM_GEN - 1 greedy steps,
     every logit finite and every token in the vocabulary.  Returns the
     logits of every step and the tokens."""
@@ -4079,7 +4195,7 @@ def _lm_serve(torch, model, params, batch, prompt, tag, elsize, peak, card):
           f"{tag}: tokens {tuple(tokens.shape)} outside the vocabulary")
     _lm_line(tag, model.n_params(), elsize, LM_BATCH, prompt, run,
              _lm_bounds(model, LM_BATCH, prompt, elsize, peak), peak_gb,
-             card)
+             card, phase)
     return logits, tokens
 
 
@@ -4094,10 +4210,16 @@ def _lm_exact(torch, model, params, batch, prompt, frames_scale=1.0):
     return model.prefill(p64, b64, prompt + LM_GEN)[0]
 
 
-def _lm_gates(torch, model, batch, prompt, what):
+def _lm_gates(torch, model, batch, prompt, what, tag="lm"):
     """The float64 and consistency gates on the float32 prefill's last
     logits: against the float64 run, and against a prefill of all but the
-    last LM_TAIL prompt tokens followed by LM_TAIL decode steps."""
+    last LM_TAIL prompt tokens followed by LM_TAIL decode steps.  A MoE
+    decode routes each step's tokens as one group of capacity 4, a
+    different function from the prefill's routing (``repro``'s), so with
+    MoE blocks the prefill-then-decode path is held against the same path
+    in float64 instead."""
+    from repro_torch.train.steps import cast_tree
+
     p32 = model.param_dict()
     logits, caches = model.prefill(p32, batch, prompt + LM_GEN)
     del caches
@@ -4108,19 +4230,28 @@ def _lm_gates(torch, model, batch, prompt, what):
           f"float64 (limit {LM_F64_TOL:g})")
     head = {k: v[:, :-LM_TAIL] if k in ("tokens", "labels") else v
             for k, v in batch.items()}
-    _, caches = model.prefill(p32, head, prompt + LM_GEN)
-    for pos in range(prompt - LM_TAIL, prompt):
-        step, caches = model.decode_step(p32, caches,
-                                         batch["tokens"][:, pos], pos)
-    err_c = _lm_rel(torch, step, logits)
+
+    def tail(params):
+        _, caches = model.prefill(params, head, prompt + LM_GEN)
+        for pos in range(prompt - LM_TAIL, prompt):
+            step, caches = model.decode_step(params, caches,
+                                             batch["tokens"][:, pos], pos)
+        return step
+
+    step = tail(p32)
+    moe = any(k.endswith("_moe") for _, ks in model.cfg.pattern for k in ks)
+    ref = tail(cast_tree(p32, torch.float64)) if moe else logits
+    against = (f"the same path in float64" if moe
+               else f"prefill of {prompt}")
+    err_c = _lm_rel(torch, step, ref)
     check(err_c <= LM_CONSISTENCY_TOL,
           f"{what}: prefill of {prompt - LM_TAIL} + {LM_TAIL} decode steps "
-          f"{err_c:.3e} of max |logit| from prefill of {prompt} (limit "
+          f"{err_c:.3e} of max |logit| from {against} (limit "
           f"{LM_CONSISTENCY_TOL:g})")
-    print(f"[lm] {what} gates: prefill float32 vs float64 {err64:.3e} of max"
-          f" |logit| (limit {LM_F64_TOL:g}); prefill of {prompt - LM_TAIL} + "
-          f"{LM_TAIL} decode steps vs prefill of {prompt} {err_c:.3e} "
-          f"(limit {LM_CONSISTENCY_TOL:g})")
+    print(f"[{tag}] {what} gates: prefill float32 vs float64 {err64:.3e} of "
+          f"max |logit| (limit {LM_F64_TOL:g}); prefill of {prompt - LM_TAIL}"
+          f" + {LM_TAIL} decode steps vs {against} {err_c:.3e} (limit "
+          f"{LM_CONSISTENCY_TOL:g})")
 
 
 def _lm_gemma(torch, dev, card):
@@ -4247,7 +4378,10 @@ def _train_bound(model, seqs: int, seq: int, n_micro: int, peak: float):
     under remat.  Bytes: the optimizer's pass (parameter, gradient and
     float32 ``v`` read and written, bfloat16 ``m`` read and written), every
     float32 weight read by each microbatch's forward, backward and
-    recompute, the float32 logits written and read back.  Returns
+    recompute, the float32 logits written and read back.  A shared block's
+    weights count once for each position that runs it, a MoE's routed
+    experts top_k of n_experts, and the recurrent mixers add their chunked
+    or stepwise work (``_recurrent_ops``) in each pass.  Returns
     ``(ms, "bytes" or "operations", operations, bytes)``."""
     import math
 
@@ -4259,12 +4393,19 @@ def _train_bound(model, seqs: int, seq: int, n_micro: int, peak: float):
         if name == "unembed" or (name == "embed/tokens"
                                  and cfg.tie_embeddings):
             head += size
+        elif _routed(name):
+            layers += size * cfg.top_k / cfg.n_experts
+        elif name.startswith("shared/") and len(decl.shape) > 1:
+            layers += size * _kind_uses(cfg, name.split("/")[1])
         elif name.startswith("dec/") and len(decl.shape) > 1:
             layers += size
     passes = 3 + (1 if cfg.remat else 0)
     ops = 2 * tokens * (3 * head + passes * layers)
     window = cfg.window or float("inf")
     for kind in [k for r, ks in cfg.pattern for _ in range(r) for k in ks]:
+        if kind in ("mamba", "mlstm", "slstm"):
+            ops += passes * _recurrent_ops(cfg, kind, tokens, seq)[0]
+            continue
         w = window if kind == "attn_local" else float("inf")
         pairs = sum(min(q + 1, w) for q in range(seq))
         ops += passes * 4 * seqs * cfg.n_heads * cfg.resolved_head_dim * pairs
@@ -4703,6 +4844,330 @@ def _phase_train(torch, dev):
     print(f"[timing] the train phase took {time.perf_counter() - t_phase:.1f}"
           f" s with its checks ({card})")
     return summed, record
+
+
+def _period(cfg):
+    """``cfg`` cut to one period of each pattern entry: every block kind in
+    its published ratio, the widths unchanged."""
+    import dataclasses
+
+    pattern = tuple((1, kinds) for _, kinds in cfg.pattern)
+    return dataclasses.replace(cfg, pattern=pattern,
+                               n_layers=sum(len(k) for _, k in pattern))
+
+
+def _fam_serve_whole(torch, dev, card, name):
+    """``name`` whole at full width: float32 then bfloat16 served.  The
+    float64, consistency and bfloat16 gates run at full depth for the
+    configs of FAM_GATE_WHOLE and at one period for the others, whose
+    whole random-weight model is too ill-conditioned for any comparison of
+    two orders of rounding (its attention is as sharp as whisper's,
+    ``_lm_whisper``): there the distances at full depth, and float64's own
+    move under a 2**-24 nudge of the embedding, are printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.steps import cast_tree
+
+    cfg, prompt = get_config(name), FAM_PROMPT
+    model, batch = _lm_build(torch, dev, cfg, prompt, tag="families")
+    p32 = model.param_dict()
+    logits, tokens = _lm_serve(torch, model, p32, batch, prompt,
+                               f"{name} float32", 4, PEAK_OPS["float32"],
+                               card, "families")
+    pb = cast_tree(p32, torch.bfloat16)
+    logits_b, tokens_b = _lm_serve(torch, model, pb, batch, prompt,
+                                   f"{name} bfloat16", 2, PEAK_BF16, card,
+                                   "families")
+    err_b = _lm_rel(torch, logits_b[0], logits[0])
+    print(f"[families] {name} at full depth: bfloat16 prefill logits "
+          f"{err_b:.3e} of max |logit| from float32; "
+          f"{int((tokens_b == tokens).sum())} of {tokens.numel()} greedy "
+          f"tokens as in float32")
+    del pb, logits_b
+    if name not in FAM_GATE_WHOLE:
+        exact = _lm_exact(torch, model, p32, batch, prompt)
+        p64 = cast_tree(p32, torch.float64)
+        p64["embed/tokens"] = p64["embed/tokens"] * (1 + 2.0 ** -24)
+        moved = model.prefill(p64, batch, prompt + LM_GEN)[0]
+        del p64
+        print(f"[families] {name} at full depth (not gated): prefill "
+              f"float32 vs float64 {_lm_rel(torch, logits[0], exact):.3e} "
+              f"of max |logit|; float64 with the embedding x (1 + 2**-24) "
+              f"vs float64 {_lm_rel(torch, moved, exact):.3e}")
+        del exact, moved, model, p32
+        model, batch = _lm_build(torch, dev, _period(cfg), prompt,
+                                 tag="families")
+        p32 = model.param_dict()
+        logits = model.prefill(p32, batch, prompt + LM_GEN)[0][None]
+        logits_b = model.prefill(cast_tree(p32, torch.bfloat16), batch,
+                                 prompt + LM_GEN)[0]
+        err_b = _lm_rel(torch, logits_b, logits[0])
+    what = (name if name in FAM_GATE_WHOLE
+            else f"{name} at one period ({model.cfg.n_layers} blocks)")
+    check(err_b <= LM_BF16_TOL, f"{what}: bfloat16 prefill logits "
+          f"{err_b:.3e} of max |logit| from float32 (limit {LM_BF16_TOL:g})")
+    print(f"[families] {what} bfloat16 gate: prefill logits {err_b:.3e} of "
+          f"max |logit| from float32 (limit {LM_BF16_TOL:g})")
+    _lm_gates(torch, model, batch, prompt, what, "families")
+
+
+def _fam_serve_moe(torch, dev, card, name):
+    """``name`` at one period of its pattern, full width, all experts, in
+    bfloat16: served, the loss finite; its float32 gates at reduced
+    width."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg, prompt = _period(get_config(name)), FAM_MOE_PROMPT
+    model, batch = _lm_build(torch, dev, cfg, prompt, torch.bfloat16,
+                             "families")
+    params = model.param_dict()
+    _lm_serve(torch, model, params, batch, prompt,
+              f"{name} one period ({cfg.n_layers} blocks) bfloat16", 2,
+              PEAK_BF16, card, "families")
+    loss, metrics = model.loss(params, batch)
+    check(math.isfinite(float(loss)) and math.isfinite(float(metrics["aux"])),
+          f"{name}: loss {float(loss)}, aux {float(metrics['aux'])}")
+    print(f"[families] {name} one period bfloat16: loss {float(loss):.4f} "
+          f"(aux {float(metrics['aux']):.4f}) on the {LM_BATCH} x {prompt} "
+          f"prompts")
+    del model, params
+    red = reduced_config(get_config(name))
+    model, batch = _lm_build(torch, dev, red, FAM_REDUCED_PROMPT,
+                             tag="families")
+    _lm_gates(torch, model, batch, FAM_REDUCED_PROMPT, f"reduced {name}",
+              "families")
+
+
+def _fam_slstm_scan(torch, dev, card):
+    """xlstm-125m's sLSTM loop at full width on the card, FAM_SCAN_STEPS
+    steps of a batch of 1: the scan (a CUDA graph replay a step, its own
+    backward) against autograd through the eager loop of the same cell,
+    the outputs and the final carry equal and the gradients within
+    FAM_SCAN_TOL of each one's max; both timed, synchronized."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, xlstm
+
+    cfg = blocks.slstm_config(get_config("xlstm-125m"))
+    d, nh = cfg.d_model, cfg.n_heads
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).requires_grad_()
+
+    leaves = [draw(1, FAM_SCAN_STEPS, 4 * d, scale=1.0),
+              draw(nh, d // nh, 4 * d // nh, scale=(nh / d) ** 0.5),
+              draw(4 * d, scale=0.1)]
+    carry = xlstm.slstm_init_carry(cfg, 1, dev)
+    weight = torch.randn((1, FAM_SCAN_STEPS, d), generator=gen, device=dev)
+
+    def loop(cfg, wx, r, b, carry):
+        h, c, n, m = carry
+        hs = []
+        for t in range(wx.shape[1]):
+            h, c, n, m = xlstm._cell(xlstm._gates(cfg, wx[:, t], h, r, b),
+                                     c, n, m)
+            hs.append(h)
+        return torch.stack(hs, 1), (h, c, n, m)
+
+    runs = {}
+    for name, fn in (("scan", xlstm._slstm_scan), ("autograd loop", loop)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hs, out = fn(cfg, *leaves, carry)
+        grads = torch.autograd.grad((hs * weight).sum(), leaves)
+        torch.cuda.synchronize()
+        runs[name] = (hs.detach(), out, grads, time.perf_counter() - t)
+    (hs, out, grads, t_scan), (hs_r, out_r, grads_r, t_loop) = runs.values()
+    same = bool(torch.equal(hs, hs_r)) and all(
+        torch.equal(x, y) for x, y in zip(out, out_r))
+    errs = [_rel_leaf(torch, g, r) for g, r in zip(grads, grads_r)]
+    check(same and max(errs) <= FAM_SCAN_TOL, f"sLSTM scan: outputs equal "
+          f"{same}, gradient errors {errs} (limit {FAM_SCAN_TOL:g})")
+    print(f"[families] xlstm-125m's sLSTM, {FAM_SCAN_STEPS} steps at d = {d}"
+          f": the scan (graph replays, own backward) {t_scan * 1e3:.1f} ms "
+          f"forward and backward against autograd through the eager loop "
+          f"{t_loop * 1e3:.1f} ms; outputs and carry equal, gradients "
+          f"{max(errs):.3e} of max |g| apart (limit {FAM_SCAN_TOL:g}); "
+          f"{card}")
+
+
+def _fam_train(torch, dev, card, capture, streams, launches, name):
+    """``name`` at full width: TRAIN_STEPS float32 EigenPre steps (as
+    ``_train_gemma``), step 1's refresh held as phase 15 holds it.  Returns
+    the step record."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import EigenPre
+    from repro_torch.train import TrainState, make_train_step, put_batch
+
+    cfg = get_config(name)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    params = model.stacked_dict()
+    opt = EigenPre()
+    eligible = sorted(k for k, p in params.items() if opt._eligible(p))
+    n_keys, rows = FAM_ELIGIBLE[name]
+    check(len(eligible) == n_keys
+          and all(params[k].shape[0] == rows for k in eligible),
+          f"families: EigenPre's eligible {name} parameters {eligible}")
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    source = make_synthetic(cfg, ShapeConfig("train_4k", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"), seed=SEED)
+    step32 = make_train_step(model, opt, torch.float32,
+                             microbatch=TRAIN_MICRO)
+    torch.cuda.synchronize()
+    print(f"[families] {name}: {model.n_params()} parameters drawn on the "
+          f"card in {time.perf_counter() - t:.2f} s; EigenPre eligible: "
+          f"{len(eligible)} stacked keys of {rows} rows")
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, gnorms, refreshed = [], [], [], {}
+    for i in range(TRAIN_STEPS):
+        batch = put_batch(source.global_batch_at(i), dev)
+        tag = f"{name} step {i + 1}"
+        (state, metrics), counts, wall = _train_counted(
+            torch, tag, lambda: step32(state, batch), capture, streams,
+            launches)
+        walls.append(wall)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        check(all(map(math.isfinite, (losses[-1], gnorms[-1]))),
+              f"{tag}: loss {losses[-1]}, grad norm {gnorms[-1]}")
+        want = (2 * len(eligible), len(eligible)) if i == 0 else (0, 0)
+        check((counts["sturm_bisect"], counts["logabs_sum"]) == want
+              and counts["sturm_segmented"] == 0,
+              f"{tag}: launches {counts}, expected (kernel 1, kernel 2) "
+              f"{want}")
+        if i == 0:
+            refreshed = {k: (state.opt_state.gram[k],
+                             state.opt_state.eigvals[k],
+                             state.opt_state.eigvecs[k]) for k in eligible}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    worst = [max(x) for x in zip(*(_check_refresh(torch, k, *v, opt)
+                                   for k, v in refreshed.items()))]
+    grams = [state.opt_state.gram[k] for k in eligible]
+
+    def refresh():
+        for g in grams:
+            opt._topk(g)
+
+    refresh_ms = _events_ms(torch, refresh, 1, 3)
+    bound_ms, bound_by, ops, nbytes = _train_bound(
+        model, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, PEAK_OPS["float32"])
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[families] {name} float32, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"in {TRAIN_MICRO} microbatches, remat {cfg.remat_policy}, "
+          f"EigenPre: losses {losses}, grad norms {gnorms}; step ms "
+          + ", ".join(f"{w:.1f}" for w in walls)
+          + f" (step 1 refreshes) against a bound of {bound_ms:.1f} ms by "
+          f"{bound_by} ({ops / 1e12:.2f} TFLOP, {nbytes / 1e9:.1f} GB), "
+          f"{tokens * 1e3 / steady:.1f} tokens/s at the median of steps "
+          f"2-{TRAIN_STEPS}; the refresh ({len(eligible)} top-{opt.rank} "
+          f"solves of {sorted({tuple(g.shape) for g in grams})} float32 "
+          f"grams) {refresh_ms:.3f} ms by CUDA events; peak memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated); {card}")
+    print(f"[families] {name} step 1's refreshes against float64 eigh: "
+          f"worst eigenvalue error {worst[0]:.3e} of ||A||_2 (limit 2e-4); "
+          f"at unit scale the components |v|^2 of eigenvectors apart by "
+          f"{TRAIN_GAP_MIN:g} {worst[1]:.3e} from eigh's (limit "
+          f"{TRAIN_COMPONENT_TOL:g}); as refreshed (not gated): components "
+          f"{worst[2]:.3e}, rank-{opt.rank} projector {worst[3]:.3e}, "
+          f"residual {worst[4]:.3e} of ||A||_F")
+    return dict(ms=steady, walls=walls, bound_ms=bound_ms, bound_by=bound_by,
+                tokens_per_s=tokens * 1e3 / steady, refresh_ms=refresh_ms,
+                peak_gb=peak_gb)
+
+
+def _fam_train_reduced(torch, dev, card, name):
+    """Reduced ``name``, FAM_REDUCED_STEPS AdamW steps on repro's repeating
+    batches: the loss falls by FAM_REDUCED_DROP; no kernel launches."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step, put_batch
+
+    cfg = reduced_config(get_config(name))
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    opt = AdamW(lr=3e-3, weight_decay=0.0)
+    params = model.stacked_dict()
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    step = make_train_step(model, opt, torch.float32)
+    source = make_synthetic(cfg, ShapeConfig("t", 16, 4, "train"), seed=0)
+    losses = []
+    _reset_counts()
+    t = time.perf_counter()
+    for i in range(FAM_REDUCED_STEPS):
+        state, metrics = step(state, put_batch(
+            source.global_batch_at(i % 4), dev))
+        losses.append(float(metrics["loss"]))
+    wall = time.perf_counter() - t
+    counts = _read_counts()
+    check(not any(counts.values()), f"reduced {name} AdamW: launches "
+          f"{counts}")
+    check(all(map(math.isfinite, losses))
+          and losses[-1] < losses[0] - FAM_REDUCED_DROP,
+          f"reduced {name}: losses {losses[::5]}")
+    print(f"[families] reduced {name}, {FAM_REDUCED_STEPS} AdamW steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (must fall by "
+          f"{FAM_REDUCED_DROP:g}) in {wall:.1f} s; {card}")
+
+
+def _phase_families(torch, dev):
+    """16. The other block families at published width: Mamba2 with
+    zamba2's shared attention, mLSTM and sLSTM, MoE, MLA.  Serving
+    (``_fam_serve_whole``, ``_fam_serve_moe``) launches no kernel of the
+    repo; training zamba2 and xlstm with EigenPre launches kernels 1 and 2
+    at step 1's refresh, each launch held against its plain version.
+    Returns each wrapper's launches, summed by part."""
+    card = _gpu_name_and_limit()
+    print(f"[families] phase 16 on {card}")
+    t_phase = time.perf_counter()
+    _reset_counts()
+    with torch.inference_mode():
+        for name in FAM_WHOLE:
+            _fam_serve_whole(torch, dev, card, name)
+        for name in FAM_MOE:
+            _fam_serve_moe(torch, dev, card, name)
+    counts = _read_counts()
+    check(not any(counts.values()), f"families: the serving path launched "
+          f"a kernel of the repo: {counts}")
+    print(f"[timing] the families' serving took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    _fam_slstm_scan(torch, dev, card)
+    calls, plain, undo = _arm_server_capture()
+    streams, launches = {}, {}
+    try:
+        for name in FAM_WHOLE:
+            _fam_train(torch, dev, card, (calls, plain), streams, launches,
+                       name)
+            torch.cuda.empty_cache()
+        for name in FAM_MOE:
+            _fam_train_reduced(torch, dev, card, name)
+    finally:
+        undo()
+    _hold_grouped(torch, "families", streams, {key: [] for key in _PLAINS})
+    torch.cuda.empty_cache()
+    parts = {}
+    for name in FAM_WHOLE:
+        parts[f"{name} step 1"] = [f"{name} step 1"]
+        parts[f"{name} steps 2-{TRAIN_STEPS}"] = [
+            f"{name} step {i}" for i in range(2, TRAIN_STEPS + 1)]
+    summed = {part: {key: sum(launches[t][key] for t in tags)
+                     for key in launches[tags[0]]}
+              for part, tags in parts.items()}
+    print(f"[families] launches by part: {summed}")
+    print(f"[timing] the families phase took "
+          f"{time.perf_counter() - t_phase:.1f} s with its checks ({card})")
+    return summed
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

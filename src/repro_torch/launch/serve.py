@@ -43,10 +43,9 @@ prefills ``--batch`` seeded prompts of ``--prompt-len`` tokens (whisper's
 frames and llama-vision's images are seeded too), decodes ``--gen`` tokens
 greedily, and prints the ``(batch, gen)`` token ids as a JSON list.  The
 parameters are cast to ``--dtype`` once, before the decode loop.  It runs
-on the card unless ``--device`` names another device.  Refused by name: a
-config that holds a block kind the port does not run yet (``mla``,
-``attn_moe``, ``mamba``, ...), and ``--mesh`` other than ``1x1`` (the
-sharded LM path is not ported yet).
+on the card unless ``--device`` names another device.  Every config of the
+registry runs.  Refused: ``--mesh`` other than ``1x1`` (the sharded LM path
+is not ported yet).
 """
 
 from __future__ import annotations
@@ -435,7 +434,6 @@ def main(argv=None):
     if args.arch is None:
         ap.error("--eei is required unless --arch is given")
     from repro_torch.configs import get_config, reduced_config
-    from repro_torch.models import check_ported
 
     try:
         cfg = get_config(args.arch)
@@ -443,10 +441,6 @@ def main(argv=None):
         ap.error(f"--arch: {exc.args[0]}")
     if args.reduced:
         cfg = reduced_config(cfg)
-    try:
-        check_ported(cfg)
-    except NotImplementedError as exc:
-        ap.error(str(exc))
     if data * model > 1:
         ap.error(f"--mesh {args.mesh} with --arch: the sharded LM path is "
                  f"not ported yet")

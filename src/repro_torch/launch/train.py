@@ -15,9 +15,9 @@ config (a sequence of 64 and a batch of 4 unless ``--seq``/``--batch``
 say otherwise); ``--eigenpre`` trains with ``EigenPre`` over AdamW, whose
 refresh runs the EEI engine's kernels on the card.  It runs on the card
 unless ``--device`` names another device; with no card and no
-``--device`` it refuses to run.  Refused by name: a config that holds a
-block kind the port does not run yet, and ``--mesh`` other than ``1x1``
-(the sharded LM path is not ported yet).
+``--device`` it refuses to run.  Every config of the registry trains.
+Refused: ``--mesh`` other than ``1x1`` (the sharded LM path is not ported
+yet).
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def main(argv=None):
                     help="torch device to train on (default: the card)")
     args = ap.parse_args(argv)
     from repro_torch.launch.mesh import mesh_axes
-    from repro_torch.models import LanguageModel, check_ported
+    from repro_torch.models import LanguageModel
 
     try:
         data, model_axis = mesh_axes(args.mesh)
@@ -77,10 +77,6 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    try:
-        check_ported(cfg)
-    except NotImplementedError as exc:
-        ap.error(str(exc))
     logging.basicConfig(level=logging.INFO)
 
     shape = SHAPES[args.shape]

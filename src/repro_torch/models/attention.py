@@ -14,9 +14,13 @@ Conventions (``repro``'s):
              the caller; decode is one unchunked product over Smax.
 
 Query head ``h`` reads kv head ``h // rep`` (``q`` reshapes to
-``(B, S, Hkv, rep, Dh)``).  Not ported: ``repro``'s MLA (multi-head latent
-attention) and ``_sequence_parallel_qkv``, a sharding hint that is the
-identity on one device; both wait for their own slices.
+``(B, S, Hkv, rep, Dh)``).  MLA (DeepSeek-V3's multi-head latent
+attention) has two computations: prefill materializes per-head K and V
+from the latent and runs the chunked core with V padded to ``qk_dim``;
+decode absorbs ``W_uk`` into the query and attends in the latent space
+over a cache of ``(latent, k_rope)``.  Not ported:
+``_sequence_parallel_qkv``, a sharding hint that is the identity on one
+device; the sharded LM brings it.
 """
 
 from __future__ import annotations
@@ -270,3 +274,121 @@ def cross_attention_cached(cfg: AttnConfig, p: dict, x: torch.Tensor,
     q = _project(x, p["wq"])
     out = _attend_cache(q, cache["k"], cache["v"], cfg.rep)
     return _out(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+    rope_theta: float = 10000.0
+    chunk_q: int = 1024
+    chunk_k: int = 1024
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def mla_param_table(cfg: MLAConfig) -> ParamTable:
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wdq": ParamDecl((d, cfg.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": ParamDecl((cfg.q_lora_rank,), ("q_lora",), init="zeros"),
+        "wuq": ParamDecl((cfg.q_lora_rank, h, cfg.qk_dim),
+                         ("q_lora", "heads", "head_dim")),
+        "wdkv": ParamDecl((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                          ("embed", "kv_lora")),
+        "kv_norm": ParamDecl((cfg.kv_lora_rank,), ("kv_lora",), init="zeros"),
+        "wuk": ParamDecl((cfg.kv_lora_rank, h, cfg.qk_nope_dim),
+                         ("kv_lora", "heads", "head_dim")),
+        "wuv": ParamDecl((cfg.kv_lora_rank, h, cfg.v_dim),
+                         ("kv_lora", "heads", "head_dim")),
+        "wo": ParamDecl((h, cfg.v_dim, d), ("heads", "head_dim", "embed"),
+                        init="output", fan_in=h * cfg.v_dim),
+    }
+
+
+def _mla_q(cfg: MLAConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    ql = common.rms_norm(common.matmul(x, p["wdq"]), p["q_norm"])
+    q = _project(ql, p["wuq"])
+    q_nope = q[..., : cfg.qk_nope_dim]
+    q_rope = common.apply_rope(q[..., cfg.qk_nope_dim:], positions,
+                               cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(cfg: MLAConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor):
+    dkv = common.matmul(x, p["wdkv"])
+    latent = common.rms_norm(dkv[..., : cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = common.apply_rope(
+        dkv[..., cfg.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta
+    )[:, :, 0]  # (B, S, dr) — single shared rope key
+    return latent, k_rope
+
+
+def mla_attention(cfg: MLAConfig, p: dict, x: torch.Tensor,
+                  positions: torch.Tensor):
+    """Prefill/train: per-head K and V materialized from the latent, through
+    the chunked core with V padded to ``qk_dim``.  Returns (y, the cache
+    payload ``(latent, k_rope)``)."""
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    latent, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = _project(latent, p["wuk"])
+    v = _project(latent, p["wuv"])
+    h = cfg.n_heads
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], h,
+                                            cfg.qk_rope_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    acfg = AttnConfig(
+        d_model=cfg.d_model, n_heads=h, n_kv_heads=h, head_dim=cfg.qk_dim,
+        use_rope=False, chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k,
+    )
+    v_p = torch.nn.functional.pad(v, (0, cfg.qk_dim - cfg.v_dim))
+    out = chunked_attention(acfg, q, k, v_p)[..., : cfg.v_dim]
+    return _out(out, p["wo"]), (latent, k_rope)
+
+
+def mla_attention_decode(cfg: MLAConfig, p: dict, x: torch.Tensor,
+                         cache: dict, pos: int):
+    """Absorbed decode: scores and values live in the latent space, and the
+    cache is ``(latent, k_rope)`` only (MLA's memory win).  The cache
+    entries at ``pos`` are written in place (in the cache's dtype)."""
+    b = x.shape[0]
+    posb = torch.full((b, 1), pos, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, posb)  # (B,1,H,*)
+    latent_new, k_rope_new = _mla_latent(cfg, p, x, posb)
+    cache["latent"][:, pos] = latent_new[:, 0].to(cache["latent"].dtype)
+    cache["k_rope"][:, pos] = k_rope_new[:, 0].to(cache["k_rope"].dtype)
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    # Absorb W_uk into the query: q_abs (B,H,r)
+    q_abs = common.einsum("bhe,rhe->bhr", q_nope[:, 0], p["wuk"])
+    s = common.einsum("bhr,bkr->bhk", q_abs, latent, f32=True)
+    s = s + common.einsum("bhe,bke->bhk", q_rope[:, 0], k_rope, f32=True)
+    s = s / math.sqrt(cfg.qk_dim)
+    k_posn = torch.arange(latent.shape[1], device=x.device)
+    s = torch.where((k_posn <= pos)[None, None], s, common.NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o_lat = common.einsum("bhk,bkr->bhr", pr.to(latent.dtype), latent,
+                 f32=True).to(x.dtype)
+    out = common.einsum("bhr,rhe->bhe", o_lat, p["wuv"])
+    y = common.einsum("bhe,hed->bd", out, p["wo"])[:, None]
+    return y, cache
+
+
+def mla_cache_spec(cfg: MLAConfig, batch: int, smax: int, dtype):
+    return {
+        "latent": TensorSpec((batch, smax, cfg.kv_lora_rank), dtype),
+        "k_rope": TensorSpec((batch, smax, cfg.qk_rope_dim), dtype),
+    }

@@ -19,6 +19,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ b.to(dt)
 
 
+def einsum(eq: str, *ops: torch.Tensor, f32: bool = False) -> torch.Tensor:
+    """``jnp.einsum(eq, *ops)`` in the operands' promoted dtype; with
+    ``f32``, as ``preferred_element_type=float32``: the product in at least
+    float32, returned in float32."""
+    dt = torch.float32 if f32 else ops[0].dtype
+    for o in ops:
+        dt = torch.promote_types(dt, o.dtype)
+    out = torch.einsum(eq, *(o.to(dt) for o in ops))
+    return out.float() if f32 else out
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype

@@ -1,15 +1,17 @@
 """Model assembly: embedding -> block groups -> head.
 
-The twin of ``repro.models.lm`` for the attention-family configs (the
-kinds of ``blocks.PORTED_KINDS``: gemma2, whisper, the dense code models,
-llama-vision).  :class:`LanguageModel` is an ``nn.Module`` on an explicit
+The twin of ``repro.models.lm``, for all ten of its configs.
+:class:`LanguageModel` is an ``nn.Module`` on an explicit
 device and dtype that holds one parameter per declared tensor, in
 ``repro``'s einsum layouts.  ``repro`` stacks each layer group on a
 leading axis and ``lax.scan``s over it; the port keeps one tensor per
 layer and loops over the layers.  Its flat names are ``repro``'s keys with
 the layer index inserted after the group (``dec/g0/3/b0:attn_local/attn/wq``
 is row 3 of ``repro``'s ``dec/g0/b0:attn_local/attn/wq``); see
-:meth:`LanguageModel.reference_names`.
+:meth:`LanguageModel.reference_names`.  A kind of ``cfg.shared_blocks``
+(zamba2's ``attn_shared``) has one parameter set, ``shared/<kind>/...``,
+outside the groups, run at every position of the pattern that names it
+(so its gradients sum over the uses); each position keeps its own cache.
 
 The per-layer parameters are views of one tensor per ``repro`` key, in
 ``repro``'s stacked layout (:meth:`LanguageModel.stacked_dict`), which is
@@ -19,12 +21,12 @@ dict to the per-layer one with one ``torch.unbind`` a key.
 The methods are functional in the parameters, as ``repro``'s: each takes a
 ``{name: tensor}`` dict (:meth:`LanguageModel.param_dict`, or a cast of it
 from ``train.steps.cast_tree``).  Caches keep ``repro``'s layout (a list
-per group of ``{bkey: {"k": (L, B, Smax, Hkv, Dh), ...}}``); decode writes
-them in place.  Remat (``repro``'s ``jax.checkpoint`` of each layer) runs
-when ``cfg.remat`` is set and grad is enabled: ``remat_policy="dots"``
-saves the matmul outputs and recomputes the rest, any other policy
-(``"all"``, ``"none"``: save nothing) recomputes the whole layer, as
-``repro``'s ``policy=None``.
+per group of ``{bkey: {"k": (L, B, Smax, Hkv, Dh), ...}}``, the sLSTM's
+carry a list of four); decode writes them in place.  Remat (``repro``'s
+``jax.checkpoint`` of each layer) runs when ``cfg.remat`` is set and grad
+is enabled: ``remat_policy="dots"`` saves the matmul outputs and
+recomputes the rest, any other policy (``"all"``, ``"none"``: save
+nothing) recomputes the whole layer, as ``repro``'s ``policy=None``.
 """
 
 from __future__ import annotations
@@ -100,25 +102,30 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def _layer_view(cache, li: int):
     """The per-layer views of a stacked cache tree."""
-    if isinstance(cache, dict):
-        return {k: _layer_view(v, li) for k, v in cache.items()}
-    return cache[li]
+    return _tree_map(lambda t: t[li], cache)
 
 
 class LanguageModel(nn.Module):
     """A ``ModelConfig``'s language model on ``device`` (the card when None;
-    ``"meta"`` allocates nothing) with parameters of ``dtype``.  A config
-    that holds a block kind the port does not run is refused here
-    (``NotImplementedError`` naming the kind).  The parameters start at
-    zero: fill them with :meth:`init` or ``interop.params_from_reference``.
+    ``"meta"`` allocates nothing) with parameters of ``dtype``.  The
+    parameters start at zero: fill them with :meth:`init` or
+    ``interop.params_from_reference``.
     """
 
     def __init__(self, cfg: ModelConfig, device=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        blocks.check_ported(cfg)
         self.cfg = cfg
         self.device = _resolve_device(device)
         # Port name -> (repro key, layer row or None), and the port's own
@@ -127,6 +134,8 @@ class LanguageModel(nn.Module):
         self._decls: ParamTable = {}
         # scope -> [group][layer] -> {bkey: {path within block: port name}}
         self._layers: dict[str, list[list[dict]]] = {"dec": [], "enc": []}
+        # shared kind -> {path within block: port name}
+        self._shared: dict[str, dict[str, str]] = {}
         # repro key -> its tensor; each port parameter is a view of one.
         self._stacked: dict[str, torch.Tensor] = {}
         for key, decl in param_table(cfg).items():
@@ -136,6 +145,9 @@ class LanguageModel(nn.Module):
             if scope not in ("dec", "enc"):
                 self._reference[key] = (key, None)
                 self._decls[key] = decl
+                if scope == "shared":
+                    _, kind, path = key.split("/", 2)
+                    self._shared.setdefault(kind, {})[path] = key
                 continue
             _, group, bkey, path = key.split("/", 3)
             gi = int(group[1:])
@@ -215,8 +227,17 @@ class LanguageModel(nn.Module):
 
     def _layer_params(self, params: dict, scope: str, gi: int,
                       li: int) -> dict:
-        return {bkey: {path: params[name] for path, name in paths.items()}
-                for bkey, paths in self._layers[scope][gi][li].items()}
+        """``{bkey: {path within block: tensor}}`` of one layer; a shared
+        kind's block reads the one ``shared/<kind>/...`` set."""
+        out = {bkey: {path: params[name] for path, name in paths.items()}
+               for bkey, paths in self._layers[scope][gi][li].items()}
+        if scope == "dec":
+            for bi, kind in enumerate(self.cfg.pattern[gi][1]):
+                if kind in self.cfg.shared_blocks:
+                    out[f"b{bi}:{kind}"] = {
+                        path: params[name]
+                        for path, name in self._shared[kind].items()}
+        return out
 
     def _run_groups(self, params, x, ctx, pattern, scope, sink=None):
         """Every layer of ``pattern`` in order; ``sink(gi, li, bkey, kind,
@@ -315,25 +336,16 @@ class LanguageModel(nn.Module):
         stacked on a leading layer axis (``repro``'s layout)."""
         cfg = self.cfg
 
-        def stacked(spec, repeat):
-            if isinstance(spec, dict):
-                return {k: stacked(v, repeat) for k, v in spec.items()}
-            return TensorSpec((repeat, *spec.shape), spec.dtype)
-
-        return [{f"b{bi}:{kind}": stacked(
-                    blocks.block_cache_spec(cfg, kind, batch, smax, dtype),
-                    repeat)
+        return [{f"b{bi}:{kind}": _tree_map(
+                    lambda s, r=repeat: TensorSpec((r, *s.shape), s.dtype),
+                    blocks.block_cache_spec(cfg, kind, batch, smax, dtype))
                  for bi, kind in enumerate(kinds)}
                 for repeat, kinds in cfg.pattern]
 
     def init_cache(self, batch: int, smax: int, dtype):
-        def zeros(spec):
-            if isinstance(spec, dict):
-                return {k: zeros(v) for k, v in spec.items()}
-            return torch.zeros(spec.shape, dtype=spec.dtype,
-                               device=self.device)
-
-        return [zeros(group) for group in self.cache_spec(batch, smax, dtype)]
+        return _tree_map(
+            lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
+            self.cache_spec(batch, smax, dtype))
 
     @torch.no_grad()
     def decode_step(self, params, caches, token, pos, kv_ctx=None):
@@ -415,10 +427,14 @@ def _scatter_seq(cache_arr, kv, s):
 
 def _payload_to_cache(cfg, kind, payload, cache, s):
     """Write one layer's prefill payload into its cache views."""
-    if kind in ("attn", "attn_local", "attn_bidir"):
+    if kind in blocks._ATTN_KINDS:
         k, v = payload
         return {"k": _scatter_seq(cache["k"], k, s),
                 "v": _scatter_seq(cache["v"], v, s)}
+    if kind in ("mla", "mla_moe"):
+        latent, k_rope = payload
+        return {"latent": _scatter_seq(cache["latent"], latent, s),
+                "k_rope": _scatter_seq(cache["k_rope"], k_rope, s)}
     if kind == "cross":
         k, v = payload
         cache["k"].copy_(k)
@@ -433,4 +449,8 @@ def _payload_to_cache(cfg, kind, payload, cache, s):
                      "v": _scatter_seq(cache["self"]["v"], v, s)},
             "cross": cache["cross"],
         }
-    raise blocks._unported(kind)
+    if kind in ("mamba", "mlstm"):
+        return blocks._write(cache, payload)
+    if kind == "slstm":
+        return blocks._write(cache, {"carry": list(payload)})
+    raise ValueError(kind)

@@ -834,6 +834,32 @@ def test_lm_prefill_decode_on_the_card(cuda_device, arch, dtype):
         close(got, ref, f"cache {j}")
 
 
+def test_slstm_scan_replays_a_cuda_graph_a_step_on_the_card(cuda_device):
+    """The sLSTM loop past ``GRAPH_MIN_STEPS`` (each step one replay of a
+    CUDA graph, forward and its own backward) against the same loop on
+    the CPU (eager steps): outputs, final carry and gradients within 1e-4
+    of each one's max."""
+    from repro_torch.models import xlstm
+
+    cfg = xlstm.SLSTMConfig(64, 4)
+    steps = 2 * xlstm.GRAPH_MIN_STEPS
+    gen = torch.Generator().manual_seed(3)
+    inputs = [torch.randn(2, steps, 256, generator=gen),
+              torch.randn(4, 16, 64, generator=gen) * 0.25,
+              torch.randn(256, generator=gen) * 0.1]
+    weight = torch.randn(2, steps, 64, generator=gen)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        leaves = [x.to(dev).requires_grad_() for x in inputs]
+        hs, carry = xlstm._slstm_scan(
+            cfg, *leaves, xlstm.slstm_init_carry(cfg, 2, dev))
+        grads = torch.autograd.grad((hs * weight.to(dev)).sum(), leaves)
+        runs.append([x.detach().cpu() for x in (hs, *carry[:3], *grads)])
+    for i, (got, ref) in enumerate(zip(runs[1], runs[0])):
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-4, (i, err)
+
+
 def test_train_step_on_the_card(cuda_device):
     """One reduced gemma2-2b EigenPre step on the card from the CPU's
     state: the refresh launches kernels 1 and 2 (twice and once for each

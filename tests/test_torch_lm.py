@@ -1,11 +1,15 @@
 """The language model's modules and the whole model against repro's, on the CPU.
 
-The port's configs, parameter tables, ``models.common``, the chunked,
-decode and cross attention, and ``LanguageModel`` (``loss``, ``prefill``'s
-last logits and every cache tensor) of the six attention-family configs at
-reduced width, held against ``repro`` on the same numpy-seeded inputs, with
-``repro``'s own weights carried across by ``interop.params_from_reference``.
-Decode and the launcher are in ``tests/test_torch_lm_serve.py``.
+The port's configs, parameter tables (all ten configs), ``models.common``,
+the chunked, decode and cross attention, and ``LanguageModel`` (``loss``,
+``prefill``'s last logits and every cache tensor) of the six
+attention-family configs at reduced width, held against ``repro`` on the
+same numpy-seeded inputs, with ``repro``'s own weights carried across by
+``interop.params_from_reference``.  Decode and the launcher are in
+``tests/test_torch_lm_serve.py``; the other four configs' block kinds
+(Mamba2 and zamba2's shared attention, mLSTM and sLSTM, MoE, MLA) and
+their whole models in ``tests/test_torch_ssm.py`` and
+``tests/test_torch_moe_mla.py``.
 
 Tolerances, from ``python tests/test_torch_lm.py 0 1 2`` (``measure``:
 the port against repro, and each against the port's float64 run of the
@@ -40,6 +44,7 @@ import torch
 from repro.configs import base as r_base
 from repro.configs import registry as r_registry
 from repro.models import attention as r_attn
+from repro.models import blocks as r_blocks
 from repro.models import common as r_common
 from repro.models import mlp as r_mlp
 from repro.models.lm import LanguageModel as RLanguageModel
@@ -51,12 +56,14 @@ from repro_torch.models import attention, blocks, common, mlp, params
 from repro_torch.models.lm import LanguageModel
 from repro_torch.train.steps import cast_tree
 
-#: The six configs whose blocks are all of the ported kinds.
+#: The six attention-family configs (held whole here).
 ARCHS = ("gemma2-2b", "whisper-large-v3", "llama-3.2-vision-90b",
          "granite-20b", "codeqwen1.5-7b", "starcoder2-7b")
-#: Configs holding a kind that is not ported, and the first such kind.
-UNPORTED = {"deepseek-v3-671b": "mla", "kimi-k2-1t-a32b": "attn_moe",
-            "zamba2-2.7b": "mamba", "xlstm-125m": "mlstm"}
+#: The other four configs and the first block kind of each outside the
+#: attention family (held whole in tests/test_torch_ssm.py and
+#: tests/test_torch_moe_mla.py).
+NEW_KINDS = {"deepseek-v3-671b": "mla", "kimi-k2-1t-a32b": "attn_moe",
+             "zamba2-2.7b": "mamba", "xlstm-125m": "mlstm"}
 #: Prompt length (40 = 4 chunks of 10 under the reduced attn_chunk of 16,
 #: past the reduced window of 16), cache length, batch.
 B, S, SMAX = 2, 40, 48
@@ -152,17 +159,19 @@ def f64(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64)
 
 
-def assert_model_close(got, ref, arch, dtype, what, exact) -> float:
-    """Hold the port's ``got`` to repro's ``ref`` at ``model_tol`` of max
-    |ref|; in bfloat16 at least at SHARP_X times repro's distance from
-    ``exact`` (the port's float64 run).  Returns the absolute bound used."""
+def assert_model_close(got, ref, arch, dtype, what, exact,
+                       sharp_x=SHARP_X, scale=1.0) -> float:
+    """Hold the port's ``got`` to repro's ``ref`` at ``scale`` x
+    ``model_tol`` of max |ref|; in bfloat16 at least at ``sharp_x`` times
+    repro's distance from ``exact`` (the port's float64 run).  Returns the
+    absolute bound used."""
     got, ref = f64(got), f64(ref)
     assert got.shape == ref.shape, (what, got.shape, ref.shape)
     assert np.isfinite(got).all(), what
     err = float(np.abs(got - ref).max())
-    bound = model_tol(arch, dtype) * float(np.abs(ref).max())
+    bound = scale * model_tol(arch, dtype) * float(np.abs(ref).max())
     if dtype == "bfloat16":
-        bound = max(bound, SHARP_X * float(np.abs(ref - f64(exact)).max()))
+        bound = max(bound, sharp_x * float(np.abs(ref - f64(exact)).max()))
     assert err <= bound, f"{arch} {dtype} {what}: {err:.3e} > {bound:.3e}"
     return bound
 
@@ -172,14 +181,16 @@ def assert_loss_close(loss, ref, dtype):
     assert err <= LOSS_TOL[dtype], (dtype, float(loss), float(ref))
 
 
-def assert_tree_close(got, ref, arch, dtype, what, exact):
+def assert_tree_close(got, ref, arch, dtype, what, exact, sharp_x=SHARP_X,
+                      scale=1.0):
     g, r, e = (jax.tree.leaves(t) for t in (got, ref, exact))
     assert len(g) == len(r) == len(e), what
     paths = [jax.tree_util.keystr(p)
              for p, _ in jax.tree_util.tree_flatten_with_path(ref)[0]]
     for path, a, b, c in zip(paths, g, r, e):
         assert tuple(a.shape) == tuple(b.shape), (what, path)
-        assert_model_close(a, b, arch, dtype, f"{what} {path}", c)
+        assert_model_close(a, b, arch, dtype, f"{what} {path}", c, sharp_x,
+                           scale)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -213,7 +224,7 @@ def test_unknown_arch_is_refused_as_in_repro():
         p_registry.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", sorted(r_registry.ARCHS))
 def test_param_table_and_n_params_at_full_width(arch):
     """From the tables alone (a ``meta`` model allocates nothing)."""
     ours = LanguageModel(p_registry.get_config(arch), device="meta")
@@ -235,13 +246,24 @@ def test_param_table_and_n_params_at_full_width(arch):
         assert sorted(got, key=lambda r: -1 if r is None else r) == want, key
 
 
-@pytest.mark.parametrize("arch, kind", sorted(UNPORTED.items()))
+@pytest.mark.parametrize("arch, kind", sorted(NEW_KINDS.items()))
 def test_unported_kind_is_refused_when_the_model_is_built(arch, kind):
+    """No kind is refused any more: each of the four configs builds at
+    reduced width with repro's table, each of its kinds' block tables is
+    repro's, and a kind repro does not know raises repro's ValueError."""
     cfg = p_registry.reduced_config(p_registry.get_config(arch))
-    with pytest.raises(NotImplementedError, match=f"'{kind}'.*not ported"):
-        LanguageModel(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"'{kind}'"):
-        blocks.block_param_table(cfg, kind)
+    ref_cfg = r_registry.reduced_config(r_registry.get_config(arch))
+    model = LanguageModel(cfg, device="cpu")
+    assert {k: dataclasses.astuple(v) for k, v in model.param_table().items()} \
+        == {k: (v.shape, v.axes, v.init, v.fan_in)
+            for k, v in RLanguageModel(ref_cfg).param_table().items()}
+    for k in sorted({k for _, ks in cfg.pattern for k in ks} | {kind}):
+        assert {p: dataclasses.astuple(v) for p, v in
+                blocks.block_param_table(cfg, k).items()} == {
+            p: (v.shape, v.axes, v.init, v.fan_in)
+            for p, v in r_blocks.block_param_table(ref_cfg, k).items()}, k
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blocks.block_param_table(cfg, "gru")
 
 
 def test_model_needs_a_card_by_default(monkeypatch):

@@ -23,8 +23,8 @@ import torch
 from test_torch_lm import (  # noqa: F401  (_float32_jax: autouse fixture)
     ARCHS,
     DTYPES,
+    NEW_KINDS,
     SMAX,
-    UNPORTED,
     S,
     _float32_jax,
     assert_model_close,
@@ -200,12 +200,35 @@ def test_launcher_lm_needs_a_card_by_default(monkeypatch):
 @pytest.mark.parametrize("args, said", [
     (["--mesh", "2x1"], "the sharded LM path is not ported yet"),
     (["--mesh", "1x2"], "the sharded LM path is not ported yet"),
-    (["--arch", "gpt-5"], "unknown arch"),
-    *[(["--arch", arch], f"block kind '{kind}' is not ported")
-      for arch, kind in sorted(UNPORTED.items())]])
+    (["--arch", "gpt-5"], "unknown arch")])
 def test_launcher_refuses_what_the_lm_path_does_not_port(args, said, capsys):
     argv = ["--arch", "gemma2-2b", "--reduced", "--device", "cpu", *args]
     with pytest.raises(SystemExit) as exc:
         serve_cli.main(argv)
     assert exc.value.code == 2
     assert said in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", sorted(NEW_KINDS))
+def test_launcher_serves_the_other_block_families(arch):
+    """``--arch`` takes every config: the four that once were refused by
+    block kind serve at reduced width, their greedy tokens equal to the
+    model's own prefill and decode loop on the launcher's seeded weights
+    and prompts."""
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--gen", "3"]
+    gen = serve_cli.main(argv)
+    cfg = reduced_config(get_config(arch))
+    assert gen.shape == (2, 3) and ((gen >= 0) & (gen < cfg.vocab_size)).all()
+    model = LanguageModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params = model.param_dict()
+    logits, caches = model.prefill(params, serve_cli.lm_batch(cfg, 2, 8, 0,
+                                                              "cpu"), 11)
+    tok = logits.argmax(-1)
+    out = [tok]
+    for i in range(2):
+        logits, caches = model.decode_step(params, caches, tok, 8 + i)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    assert np.array_equal(gen, torch.stack(out, 1).numpy())

@@ -585,7 +585,8 @@ def test_serve_cli_packed_stream_smoke():
 @pytest.mark.parametrize("args, said", [
     (["--eei", "--sharded"], "needs a data axis of at least 2"),
     (["--eei", "--mesh", "2x"], "bad mesh spec"),
-    (["--arch", "deepseek-v3-671b", "--reduced"], "not ported"),
+    (["--arch", "deepseek-v3-671b", "--reduced", "--mesh", "2x1"],
+     "not ported"),
     ([], "--eei is required")])
 def test_serve_cli_refuses_what_is_not_ported(args, said, capsys):
     from repro_torch.launch import serve as serve_cli

@@ -8,8 +8,8 @@ repro's own initial state carried across by
 ``interop.train_state_from_reference``: the gradients of step 1, then the
 loss and grad-norm trajectories over five steps.  Then remat and
 microbatching, the twins of ``tests/test_distribution.py``'s checkpoint,
-supervisor, data and microbatch tests (the ported configs in place of
-repro's xlstm-125m, whose blocks the port does not run), checkpoints
+supervisor, data and microbatch tests (gemma2-2b where repro's use
+xlstm-125m), checkpoints
 across the two packages, and ``launch/train.py`` in a subprocess.
 
 Tolerances (from ``python tests/test_torch_train.py``, which prints the
@@ -580,10 +580,21 @@ def test_launcher_refuses_without_a_card_and_on_a_mesh(monkeypatch):
     with pytest.raises(SystemExit):
         train.main(["--arch", "gemma2-2b", "--reduced", "--mesh", "2x1",
                     "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LanguageModel(reduced_config(get_config("gemma2-2b")))
+
+
+def test_launcher_trains_reduced_xlstm():
+    """xlstm-125m, once refused by block kind, trains: one reduced step
+    (its sLSTM's time loop under autograd) with a checkpoint."""
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory() as d:
+        train.main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu",
+                    "--steps", "1", "--seq", "16", "--batch", "2",
+                    "--ckpt-every", "1", "--ckpt-dir", d])
+        assert sorted(os.listdir(Path(d) / "xlstm-125m-smoke")) == [
+            "step-0", "step-1"]
 
 
 if __name__ == "__main__":
