@@ -178,15 +178,34 @@ Phases, each of which fails the run (non-zero exit) on error:
    phase 15 trains gemma2-2b (step 1's refresh launching kernels 1 and 2
    on 40 and 9 stacked grams, each launch held against its plain
    version), reduced kimi and deepseek for 25 AdamW steps.
+17. the sharded language model (``train.steps.build_programs``) on
+   logical meshes of the card (the card repeated: parity, memory per
+   shard and cost): gemma2-2b at full width, B = 2 prompts of 5120, 16
+   greedy tokens, float32, on 1x1 (the mesh program against the
+   unsharded one), 1x2 (heads split), 2x1 and 1x3 (the query sequence
+   split), every step's logits within 1e-4 of max |logit| of the
+   unsharded path fed its tokens, times, peak memory and the bytes each
+   mesh position holds; one period of deepseek-v3-671b on 1x2 in
+   bfloat16 within 0.05 of the unsharded bfloat16 path (its MoE's
+   dropped pairs printed) and in float32 within 1e-4, its MoE dropping
+   exactly the unsharded path's count, and a full-width MoE layer in
+   float32 on 2x1 against the unsharded layer (a routing group
+   straddling the rows at 1536 tokens a row); gemma2-2b trained as phase
+   15 trains it (3 EigenPre steps) on 1x2 and on 2x1 under FSDP,
+   each loss within 1e-5 of phase 15's, step 1's refresh on the mesh's
+   first device launching kernels 1 and 2 (each launch held against its
+   plain version); ``launch/serve.py --arch gemma2-2b --mesh 1x2`` and
+   ``launch/train.py --reduced --mesh 2x1 --eigenpre`` on ``cuda:0``.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
 run of the packed program), 7, 8, each stream of 11, each part of 12, each
-run of 13, phase 14, each step of 15 and 16 and 16's serving and read
-just after, and a kernel that its path did not launch fails the run
-(phase 14 and 16's serving: a kernel that it launched; phases 15 and 16:
-a step that is not a refresh and launched one).  Every record carries its
-wrapper's launches in each part of phases 15 and 16 (``train_launches``,
-``families_launches``).  The records of kernels 1, 2 and 3 on the served
+run of 13, phase 14, each step of 15, 16 and 17 and 16's and 17's
+serving and read just after, and a kernel that its path did not launch
+fails the run (phase 14 and 16's and 17's serving: a kernel that it
+launched; phases 15, 16 and 17: a step that is not a refresh and
+launched one).  Every record carries its wrapper's launches in each part
+of phases 15, 16 and 17 (``train_launches``, ``families_launches``,
+``mesh_launches``).  The records of kernels 1, 2 and 3 on the served
 paths carry the launches of phase 11's streams (``server_launches``) and of
 phase 12's in-process parts (``fleet_launches``; the worker processes'
 launches are not counted in this process); every record carries its
@@ -402,6 +421,27 @@ FAM_SCAN_STEPS, FAM_SCAN_TOL = 512, 1e-5
 FAM_ELIGIBLE = {"zamba2-2.7b": (40, 9), "xlstm-125m": (9, 6)}
 
 
+#: Phase 17, the sharded language model on logical meshes of the one card
+#: (the card repeated: parity, memory per shard and cost, no speed claim).
+#: gemma2-2b served at LM_GEMMA_PROMPT, float32, on MESH_SERVE, every step's
+#: logits within MESH_TOL of max |logit| of the unsharded path (float32 is
+#: 2e-6 from float64 there, phase 14); 1x1 times the mesh program against
+#: the unsharded one.  One period of deepseek-v3-671b served on 1x2 in
+#: bfloat16 within MESH_BF16_TOL of the unsharded bfloat16 path (its MoE's
+#: dropped pairs printed), and in float32 within MESH_TOL with its MoE
+#: dropping exactly the unsharded path's count; a full-width MoE layer in
+#: float32 on 2x1 at MESH_MOE_SEQS tokens a row (1536: a routing group
+#: straddles the rows) against the unsharded layer.  gemma2-2b trained as
+#: phase 15 trains it on MESH_TRAIN ((mesh, fsdp, microbatches)), each loss
+#: within MESH_LOSS_TOL of phase 15's unsharded losses.  The train launcher
+#: runs MESH_LAUNCHER_STEPS.
+MESH_SERVE = ("1x1", "1x2", "2x1", "1x3")
+MESH_MOE_SEQS = (1536, 2048)
+MESH_TRAIN = (("1x2", False, TRAIN_MICRO), ("2x1", True, None))
+MESH_TOL, MESH_BF16_TOL, MESH_LOSS_TOL = 1e-4, 0.05, 1e-5
+MESH_LAUNCHER_STEPS = 2
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -495,14 +535,17 @@ def main() -> int:
         r["sharded_launches"] = {tag: counts[kind]
                                  for tag, counts in sharded.items()}
     _phase_lm(torch, dev)
-    train, _ = _phase_train(torch, dev)
+    train, train_record = _phase_train(torch, dev)
     families = _phase_families(torch, dev)
+    mesh = _phase_mesh_lm(torch, dev, train_record)
     for r in records:
         kind = r["name"].split("[")[0]
         r["train_launches"] = {part: counts[kind]
                                for part, counts in train.items()}
         r["families_launches"] = {part: counts[kind]
                                   for part, counts in families.items()}
+        r["mesh_launches"] = {part: counts[kind]
+                              for part, counts in mesh.items()}
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -4598,7 +4641,7 @@ def _train_gemma(torch, dev, card, capture, streams, launches):
           f"{card}")
     return dict(ms=steady, walls=walls, bound_ms=bound_ms, bound_by=bound_by,
                 tokens_per_s=tokens * 1e3 / steady, refresh_ms=refresh_ms,
-                peak_gb=peak_gb, bf16_ms=wall16)
+                peak_gb=peak_gb, bf16_ms=wall16, losses=losses)
 
 
 def _rel_leaf(torch, got, ref) -> float:
@@ -5168,6 +5211,454 @@ def _phase_families(torch, dev):
     print(f"[timing] the families phase took "
           f"{time.perf_counter() - t_phase:.1f} s with its checks ({card})")
     return summed
+
+
+def _mesh_of(spec: str, dev):
+    from repro_torch.launch.mesh import parse_mesh
+
+    return parse_mesh(spec, dev)
+
+
+def _mesh_serve(torch, progs, params, batch, prompt, toks, stats=None):
+    """The mesh's prefill (timed after a warm-up; ``stats`` collects its
+    MoE's dropped pairs), then LM_GEN - 1 decode steps fed the unsharded
+    path's greedy tokens ``toks`` (B, LM_GEN).  Returns the logits of every
+    step (LM_GEN, B, V), the caches, the prefill's wall ms and the decode's
+    wall ms a step, synchronized."""
+    progs.prefill(params, batch, prompt + LM_GEN)  # lazy modules, cuBLAS
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, caches = progs.prefill(params, batch, prompt + LM_GEN,
+                                   stats=stats)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    out = [logits]
+    t = time.perf_counter()
+    for i in range(LM_GEN - 1):
+        logits, caches = progs.decode_step(params, caches, toks[:, i],
+                                           prompt + i)
+        out.append(logits)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / (LM_GEN - 1)
+    return torch.stack(out), caches, prefill_ms, decode_ms
+
+
+def _mesh_gemma_serve(torch, dev, card):
+    """gemma2-2b at full width, float32, on MESH_SERVE: every step's logits
+    within MESH_TOL of max |logit| of the unsharded path (phase 14's), the
+    mesh fed the unsharded path's greedy tokens; times, peak memory and
+    the bytes each mesh position holds beside the unsharded path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.placement import device_bytes, put_tree
+    from repro_torch.train.steps import build_programs
+
+    cfg, prompt = get_config("gemma2-2b"), LM_GEMMA_PROMPT
+    model, batch = _lm_build(torch, dev, cfg, prompt, tag="mesh")
+    params = model.param_dict()
+    model.prefill(params, batch, prompt + LM_GEN)
+    torch.cuda.reset_peak_memory_stats()
+    ref, toks, pre1, dec1 = _lm_generate(torch, model, params, batch, prompt)
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[mesh] gemma2-2b float32 unsharded (LanguageModel): prefill "
+          f"{pre1:.1f} ms, decode {dec1:.3f} ms a token, peak memory "
+          f"{peak1:.2f} GB; {card}")
+    del params
+    stacked = model.stacked_dict()
+    for spec in MESH_SERVE:
+        mesh = _mesh_of(spec, dev)
+        progs = build_programs(model, mesh, fsdp=False,
+                               compute_dtype=torch.float32)
+        placed = put_tree(stacked, progs.state_shardings.params)
+        torch.cuda.reset_peak_memory_stats()
+        run = _mesh_serve(torch, progs, placed, batch, prompt, toks)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        logits, caches, pre, dec = run
+        errs = [_lm_rel(torch, a, b) for a, b in zip(logits, ref)]
+        check(bool(torch.isfinite(logits).all()) and max(errs) <= MESH_TOL,
+              f"mesh gemma2-2b {spec}: logits {max(errs):.3e} of max |logit| "
+              f"from the unsharded path (limit {MESH_TOL:g})")
+        same = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+        pb, cb = device_bytes(placed, mesh), device_bytes(caches, mesh)
+        print(f"[mesh] gemma2-2b float32 {spec}: prefill {pre:.1f} ms "
+              f"({pre / pre1:.2f}x unsharded), decode {dec:.3f} ms a token "
+              f"({dec / dec1:.2f}x); logits {max(errs):.3e} of max |logit| "
+              f"from the unsharded path at worst over the prefill and "
+              f"{LM_GEN - 1} steps (limit {MESH_TOL:g}), {same} of "
+              f"{ref[..., 0].numel()} argmaxes as unsharded; peak memory "
+              f"{peak:.2f} GB; bytes a position: parameters {pb}, caches "
+              f"{cb}; {card}")
+        del progs, placed, run, logits, caches
+        torch.cuda.empty_cache()
+    del model, stacked
+    torch.cuda.empty_cache()
+
+
+def _drops(stats) -> list:
+    """The dropped (token, choice) pairs of each routing in ``stats``."""
+    return [int(d) for d in stats["moe_dropped"]]
+
+
+def _mesh_deepseek_serve(torch, dev, card):
+    """deepseek-v3-671b at one period of its pattern, all 256 experts,
+    prompts of FAM_MOE_PROMPT, on 1x2 against its unsharded path on the
+    same weights, the mesh fed the unsharded path's greedy tokens:
+
+    * bfloat16: every step's logits within MESH_BF16_TOL of max |logit|.
+      The (token, choice) pairs the prefill's MoE drops past capacity are
+      printed, not gated: its inputs differ from the unsharded path's by
+      bfloat16 roundings of sums taken in another order, and a token near
+      a routing tie may then pick another expert.
+    * float32: every step's logits within MESH_TOL, and the prefill's MoE
+      drops exactly the unsharded path's count.  (2x1 would hold the
+      float32 experts once a row, 2 x 45 GB: :func:`_mesh_moe_rows` holds
+      the MoE layer alone there.)
+
+    The weights are placed on the mesh one tensor at a time, each dropped
+    from the model as it is placed."""
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.placement import device_bytes, put
+    from repro_torch.train.steps import build_programs
+
+    cfg, prompt = _period(get_config("deepseek-v3-671b")), FAM_MOE_PROMPT
+    smax = prompt + LM_GEN
+    name = f"deepseek-v3-671b one period ({cfg.n_layers} blocks)"
+    mesh = _mesh_of("1x2", dev)
+    for dtype, tol in ((torch.bfloat16, MESH_BF16_TOL),
+                       (torch.float32, MESH_TOL)):
+        what = f"{name} {str(dtype).split('.')[1]} 1x2"
+        model, batch = _lm_build(torch, dev, cfg, prompt, dtype, "mesh")
+        params = model.param_dict()
+        model.prefill(params, batch, smax)
+        ref, toks, pre1, dec1 = _lm_generate(torch, model, params, batch,
+                                             prompt)
+        stats1 = {}
+        model.prefill(params, batch, smax, stats=stats1)
+        drops1 = _drops(stats1)
+        del params
+        progs = build_programs(model, mesh, fsdp=False, compute_dtype=dtype)
+        shardings = progs.state_shardings.params
+        stacked = model.stacked_dict()
+        model.release()
+        placed = {k: put(stacked.pop(k), shardings[k]) for k in list(stacked)}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        logits, caches, pre, dec = _mesh_serve(torch, progs, placed, batch,
+                                               prompt, toks, stats)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        drops = _drops(stats)
+        errs = [_lm_rel(torch, a, b) for a, b in zip(logits, ref)]
+        same = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+        pb, cb = device_bytes(placed, mesh), device_bytes(caches, mesh)
+        print(f"[mesh] {what}: prefill {pre:.1f} ms (unsharded {pre1:.1f}), "
+              f"decode {dec:.3f} ms a token (unsharded {dec1:.3f}); logits "
+              f"{max(errs):.3e} of max |logit| from the unsharded path at "
+              f"worst (limit {tol:g}; by step {[f'{e:.1e}' for e in errs]}), "
+              f"{same} of {ref[..., 0].numel()} argmaxes as unsharded; the "
+              f"prefill's MoE drops {drops} (token, choice) pairs, the "
+              f"unsharded path {drops1}"
+              f"{' (gated equal)' if dtype == torch.float32 else ''}; peak "
+              f"memory {peak:.2f} GB; bytes a position: parameters {pb}, "
+              f"caches {cb}; {card}")
+        check(bool(torch.isfinite(logits).all()) and max(errs) <= tol,
+              f"mesh {what}: logits {max(errs):.3e} of max |logit| from the "
+              f"unsharded path (limit {tol:g})")
+        if dtype == torch.float32:
+            check(drops == drops1 and sum(drops1) > 0,
+                  f"mesh {what}: the MoE dropped {drops} (token, choice) "
+                  f"pairs, the unsharded path {drops1}")
+        del progs, placed, caches, logits, model, stacked, batch
+        torch.cuda.empty_cache()
+    _mesh_moe_rows(torch, cfg, dev, card)
+
+
+def _mesh_moe_rows(torch, cfg, dev, card):
+    """``cfg``'s MoE layer at full width, float32, drawn from SEED, over a
+    logical 2x1 mesh (``moe.moe_rows``; the TP rules replicate the experts
+    on each row, and on the one card both rows read the same tensors)
+    against the unsharded layer (``moe.moe``) on the same seeded tokens,
+    for MESH_MOE_SEQS tokens a row: the dropped (token, choice) pairs
+    equal and the outputs within MESH_TOL of max |y|.  Where a routing
+    group straddles the rows, the rows' tokens are routed together; routing
+    each row as a batch of its own (a group size from the row's token
+    count) drops another count, and the check requires that it does, so
+    that the case tells the global grouping from a per-row one."""
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.params import init_std
+    from repro_torch.sharding.placement import Split
+
+    mcfg = blocks.moe_config(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layer = {n: torch.randn(d.shape, generator=gen, device=dev).mul_(
+                 init_std(d))
+             for n, d in sorted(moe.moe_param_table(mcfg).items())}
+    rows = ((dev,), (dev,))
+    ps = [{n: Split((w,), None) for n, w in layer.items()}] * 2
+    for seq in MESH_MOE_SEQS:
+        x = torch.randn(2, seq, cfg.d_model, generator=gen, device=dev)
+        s_rows, s_whole, s_own = {}, {}, {}
+        ys, _ = moe.moe_rows(mcfg, ps, [x[:1], x[1:]], rows, s_rows)
+        y, _ = moe.moe(mcfg, layer, x, s_whole)
+        for r in range(2):
+            moe.moe(mcfg, layer, x[r:r + 1], s_own)
+        err = _lm_rel(torch, torch.cat(ys), y)
+        n_rows, n_whole = _drops(s_rows), _drops(s_whole)
+        n_own = sum(_drops(s_own))
+        g = moe.group_size(mcfg, 2 * seq)
+        straddles = seq % g != 0
+        print(f"[mesh] deepseek-v3-671b MoE layer float32 2x1, {seq} tokens "
+              f"a row (routing groups of {g}"
+              f"{', one straddling the rows' if straddles else ''}): drops "
+              f"{n_rows} (token, choice) pairs, the unsharded layer "
+              f"{n_whole}, each row routed alone {n_own}; outputs "
+              f"{err:.3e} of max |y| from the unsharded layer (limit "
+              f"{MESH_TOL:g}); {card}")
+        check(n_rows == n_whole and n_whole[0] > 0 and err <= MESH_TOL
+              and (not straddles or n_own != n_whole[0]),
+              f"mesh deepseek MoE 2x1 at {seq} tokens a row: drops "
+              f"{n_rows}, unsharded {n_whole}, rows alone {n_own}; "
+              f"outputs {err:.3e} (limit {MESH_TOL:g})")
+        del x, ys, y
+    del layer, ps
+    torch.cuda.empty_cache()
+
+
+def _mesh_gemma_train(torch, dev, card, capture, streams, launches, ref):
+    """gemma2-2b at full width, TRAIN_STEPS float32 EigenPre steps on each
+    of MESH_TRAIN (1x2 under TP in TRAIN_MICRO microbatches, 2x1 under
+    FSDP a row a sequence) from phase 15's initialization and
+    batches: each loss within MESH_LOSS_TOL (relative) of the unsharded
+    run's (``ref``: its ``losses`` and step ``walls``); step 1's refresh
+    launches kernels 1 and 2 on the mesh's first device (held against
+    their plain versions by the caller), later steps none."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import EigenPre
+    from repro_torch.sharding.placement import device_bytes, put_tree
+    from repro_torch.train import TrainState, put_batch
+    from repro_torch.train.steps import build_programs
+
+    cfg = get_config("gemma2-2b")
+    source = make_synthetic(cfg, ShapeConfig("train_4k", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"), seed=SEED)
+    out = {}
+    for spec, fsdp, micro in MESH_TRAIN:
+        torch.cuda.empty_cache()
+        model = LanguageModel(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        opt = EigenPre()
+        params = model.stacked_dict()
+        mesh = _mesh_of(spec, dev)
+        progs = build_programs(model, mesh, fsdp=fsdp, optimizer=opt,
+                               compute_dtype=torch.float32, microbatch=micro)
+        state = put_tree(TrainState(params, opt.init(params),
+                                    torch.zeros((), dtype=torch.int32)),
+                         progs.state_shardings)
+        del params
+        model.release()
+        torch.cuda.empty_cache()
+        held = device_bytes(state, mesh)
+        n_grams = sum(g.shape[0] > 1 for g in state.opt_state.gram.values())
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        name = f"gemma2-2b {spec}{' fsdp' if fsdp else ''}"
+        for i in range(TRAIN_STEPS):
+            batch = put_batch(source.global_batch_at(i), dev)
+            tag = f"{name} step {i + 1}"
+            (state, metrics), counts, wall = _train_counted(
+                torch, tag, lambda: progs.train_step(state, batch), capture,
+                streams, launches)
+            walls.append(wall)
+            losses.append(float(metrics["loss"]))
+            want = (2 * n_grams, n_grams) if i == 0 else (0, 0)
+            check((counts["sturm_bisect"], counts["logabs_sum"]) == want
+                  and counts["sturm_segmented"] == 0,
+                  f"mesh {tag}: launches {counts}, expected (kernel 1, "
+                  f"kernel 2) {want}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rel = [abs(a / b - 1) for a, b in zip(losses, ref["losses"])]
+        check(max(rel) <= MESH_LOSS_TOL, f"mesh {name}: losses {losses} vs "
+              f"unsharded {ref['losses']} ({max(rel):.3e} relative, limit "
+              f"{MESH_LOSS_TOL:g})")
+        grams = list(state.opt_state.gram.values())
+        eligible = [g for g in grams if g.shape[0] > 1]
+
+        def refresh():
+            for g in eligible:
+                opt._topk(g)
+
+        refresh_ms = _events_ms(torch, refresh, 1, 5)
+        bound_ms, bound_by, _, _ = _train_bound(
+            model, TRAIN_BATCH, TRAIN_SEQ, micro or 1, PEAK_OPS["float32"])
+        steady = sorted(walls[1:])[len(walls[1:]) // 2]
+        print(f"[mesh] {name}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens"
+              f"{f' in {micro} microbatches' if micro else ''}, remat, "
+              f"EigenPre: losses {losses} vs unsharded {ref['losses']} "
+              f"({max(rel):.3e} relative at worst, limit "
+              f"{MESH_LOSS_TOL:g}); step ms "
+              + ", ".join(f"{w:.1f}" for w in walls)
+              + " (step 1 refreshes; unsharded "
+              + ", ".join(f"{w:.1f}" for w in ref["walls"])
+              + f") against the unsharded bound of {bound_ms:.1f} ms by "
+              f"{bound_by}; the refresh "
+              f"({len(eligible)} grams on {mesh.first_device}) "
+              f"{refresh_ms:.3f} ms by CUDA events; peak memory {peak:.2f} "
+              f"GB; bytes a position {held}; {card}")
+        out[name] = dict(ms=steady, walls=walls, losses=losses, peak_gb=peak,
+                         refresh_ms=refresh_ms, bytes=held)
+        del state, progs, model, grams, eligible
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_launchers(torch, card):
+    """``launch/serve.py --arch gemma2-2b --mesh 1x2 --device cuda:0`` and
+    ``launch/train.py --arch gemma2-2b --reduced --mesh 2x1 --device cuda:0
+    --eigenpre`` in subprocesses, both at once: exit 0, on cuda, the mesh
+    and its bytes logged, the served ids in the vocabulary."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="mesh-", dir=root / "build"))
+    try:
+        runs = (("serve", [sys.executable, "-m", "repro_torch.launch.serve",
+                           *LM_LAUNCHER, "--mesh", "1x2", "--device",
+                           "cuda:0"]),
+                ("train", [sys.executable, "-m", "repro_torch.launch.train",
+                           "--arch", "gemma2-2b", "--reduced", "--mesh",
+                           "2x1", "--device", "cuda:0", "--eigenpre",
+                           "--steps", str(MESH_LAUNCHER_STEPS),
+                           "--log-every", "1", "--ckpt-dir", str(work)]))
+        t = time.perf_counter()
+        procs = [subprocess.Popen(cmd, cwd=root, env=env, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE)
+                 for _, cmd in runs]
+        try:
+            outs = [p.communicate(timeout=LM_LAUNCHER_TIMEOUT_S)
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for (what, cmd), p, (stdout, stderr) in zip(runs, procs, outs):
+            check(p.returncode == 0, f"mesh {what} launcher exited "
+                  f"{p.returncode}: {stderr[-2000:]}")
+            check("cuda" in stderr and "bytes per device" in stderr,
+                  f"mesh {what} launcher: {stderr[-2000:]}")
+            if what == "serve":
+                gen = np.array(json.loads(stdout.strip().splitlines()[-1]))
+                check(gen.shape == (LM_LAUNCHER_BATCH, LM_LAUNCHER_GEN)
+                      and bool(((gen >= 0) & (gen < get_config(
+                          "gemma2-2b").vocab_size)).all()),
+                      f"mesh serve launcher printed {gen.tolist()}")
+            else:
+                check(f"done: {MESH_LAUNCHER_STEPS} steps" in stderr,
+                      f"mesh train launcher: {stderr[-2000:]}")
+            for line in stderr.splitlines():
+                if "repro_torch." in line:
+                    print(f"[mesh] {what} launcher: {line}")
+            print(f"[mesh] {what} launcher {' '.join(cmd[3:])}: exit 0; "
+                  f"{card}")
+        print(f"[mesh] both launchers ran at once in {wall:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_mesh_lm(torch, dev, train_ref=None):
+    """17. The sharded language model on logical meshes of the one card
+    (``build_programs``): gemma2-2b served on MESH_SERVE and trained on
+    MESH_TRAIN, one period of deepseek-v3-671b served on 1x2 in bfloat16
+    and float32 (a MoE layer on 2x1), and both launchers with ``--mesh``.  ``train_ref``: the unsharded run's
+    losses and step walls (phase 15's record); computed here when None.
+    Serving launches no kernel of the repo; each training run's step 1
+    refresh launches kernels 1 and 2, each launch held against its plain
+    version.  Returns each wrapper's launches, summed by part."""
+    card = _gpu_name_and_limit()
+    print(f"[mesh] phase 17 on {card}")
+    t_phase = time.perf_counter()
+    _reset_counts()
+    with torch.inference_mode():
+        _mesh_gemma_serve(torch, dev, card)
+        _mesh_deepseek_serve(torch, dev, card)
+    counts = _read_counts()
+    check(not any(counts.values()), f"mesh: the serving path launched a "
+          f"kernel of the repo: {counts}")
+    print(f"[timing] the mesh phase's serving took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    if train_ref is None:
+        train_ref = _mesh_train_ref(torch, dev)
+    calls, plain, undo = _arm_server_capture()
+    streams, launches = {}, {}
+    try:
+        _mesh_gemma_train(torch, dev, card, (calls, plain), streams,
+                          launches, train_ref)
+    finally:
+        undo()
+    _hold_grouped(torch, "mesh", streams, {key: [] for key in _PLAINS})
+    torch.cuda.empty_cache()
+    _mesh_launchers(torch, card)
+    parts = {}
+    for spec, fsdp, _ in MESH_TRAIN:
+        name = f"gemma2-2b {spec}{' fsdp' if fsdp else ''}"
+        parts[f"{name} step 1"] = [f"{name} step 1"]
+        parts[f"{name} steps 2-{TRAIN_STEPS}"] = [
+            f"{name} step {i}" for i in range(2, TRAIN_STEPS + 1)]
+    summed = {part: {key: sum(launches[t][key] for t in tags)
+                     for key in launches[tags[0]]}
+              for part, tags in parts.items()}
+    print(f"[mesh] launches by part: {summed}")
+    print(f"[timing] the mesh phase took {time.perf_counter() - t_phase:.1f} "
+          f"s with its checks ({card})")
+    return summed
+
+
+def _mesh_train_ref(torch, dev):
+    """Phase 15's unsharded float32 EigenPre run of gemma2-2b (TRAIN_STEPS
+    steps in TRAIN_MICRO microbatches), for running phase 17 alone: its
+    ``losses`` and step ``walls`` (ms, synchronized)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import EigenPre
+    from repro_torch.train import TrainState, make_train_step, put_batch
+
+    cfg = get_config("gemma2-2b")
+    model = LanguageModel(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    opt = EigenPre()
+    params = model.stacked_dict()
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    source = make_synthetic(cfg, ShapeConfig("train_4k", TRAIN_SEQ,
+                                             TRAIN_BATCH, "train"), seed=SEED)
+    step = make_train_step(model, opt, torch.float32, microbatch=TRAIN_MICRO)
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        batch = put_batch(source.global_batch_at(i), dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append((time.perf_counter() - t) * 1e3)
+    del state, params, model
+    torch.cuda.empty_cache()
+    print(f"[mesh] gemma2-2b unsharded reference losses {losses}, step ms "
+          f"{walls}")
+    return dict(losses=losses, walls=walls)
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

@@ -8,7 +8,11 @@ sorted key order.  A key is ``repro``'s path string: ``k:<dict key>``,
 by ``§`` (``a:opt_state§a:m§k:embed/tokens``), so either package restores
 the other's checkpoints of the same tree.  Leaves are written whole, as
 numpy; bfloat16 (which numpy lacks) is widened to float32, losslessly,
-and narrowed back on restore by the template leaf's dtype.
+and narrowed back on restore by the template leaf's dtype.  A ``Sharded``
+leaf (``sharding.placement``) is written whole, gathered on the host, so a
+checkpoint taken on one mesh restores onto any other: ``restore(like,
+shardings=)`` places each leaf by the new mesh's sharding
+(``runtime.elastic.reshard_state``).
 
 Durability: writes go to ``<dir>/tmp-<step>`` and are atomically renamed
 to ``<dir>/step-<step>``, so a crash mid-write never corrupts the latest
@@ -27,6 +31,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.placement import Sharded, put
 
 _SEP = "§"
 
@@ -60,23 +66,33 @@ def _flatten(tree, prefix=()) -> dict[str, Any]:
     return flat
 
 
-def _to_host(leaf: torch.Tensor) -> np.ndarray:
-    """A copy of ``leaf`` on the host as numpy, bfloat16 widened to
-    float32."""
+def _to_host(leaf) -> np.ndarray:
+    """A copy of ``leaf`` (a tensor, or a ``Sharded`` gathered whole) on the
+    host as numpy, bfloat16 widened to float32."""
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather("cpu")
     t = leaf.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.to("cpu", copy=True).numpy()
 
 
-def _rebuild(like, prefix, arrays):
+def _rebuild(like, prefix, arrays, shardings=None):
     if like is None:
         return None
     children = _children(like)
     if children is None:
-        arr = torch.from_numpy(arrays[_SEP.join(prefix)])
-        return arr.to(device=like.device, dtype=like.dtype)
-    rebuilt = [_rebuild(c, prefix + (e,), arrays) for e, c in children]
+        arr = torch.from_numpy(arrays[_SEP.join(prefix)]).to(dtype=like.dtype)
+        if shardings is None and isinstance(like, Sharded):
+            shardings = like.sharding
+        if shardings is not None:
+            return put(arr, shardings)
+        return arr.to(device=like.device)
+    sub = ([None] * len(children) if shardings is None
+           else [c for _, c in _children(shardings)] if not isinstance(like, dict)
+           else [shardings[e[2:]] for e, _ in children])
+    rebuilt = [_rebuild(c, prefix + (e,), arrays, sh)
+               for (e, c), sh in zip(children, sub)]
     if _is_namedtuple(like):
         return type(like)(*rebuilt)
     if isinstance(like, dict):
@@ -151,9 +167,12 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: int | None = None):
+    def restore(self, like, step: int | None = None, shardings=None):
         """Restore into the structure of ``like``: each leaf a new tensor of
-        the template leaf's dtype on its device.  Returns (tree, extra)."""
+        the template leaf's dtype on its device (a ``Sharded`` leaf placed
+        as it was).  ``shardings`` (same structure, ``placement.Sharding``
+        leaves) places each leaf by its sharding instead: pass the *new*
+        mesh's to reshard elastically.  Returns (tree, extra)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -168,4 +187,5 @@ class CheckpointManager:
         missing = set(_flatten(like)) - set(arrays)
         if missing:
             raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
-        return _rebuild(like, (), arrays), manifest.get("extra", {})
+        return (_rebuild(like, (), arrays, shardings),
+                manifest.get("extra", {}))

@@ -17,8 +17,15 @@ and is not ported with it.
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import torch
+
+#: ``repro``'s three-axis ``--mesh PxDxM`` (a ``pod`` axis over TPU pods)
+#: is not ported: it comes with ``make_production_mesh`` and the dry run.
+POD_MESH_REFUSAL = ("--mesh {}: a PxDxM mesh (repro's pod axis) waits for "
+                    "the dry-run slice, which ports make_production_mesh; "
+                    "pass DxM")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +125,15 @@ def parse_mesh(spec: str, device=None) -> Mesh:
     data, model = mesh_axes(spec)
     devices = None if device is None else [device] * (data * model)
     return make_local_mesh(data, model, devices=devices)
+
+
+def log_mesh_bytes(log: logging.Logger, mesh: Mesh, tree, what: str):
+    """Log to ``log`` the mesh and the bytes each of its positions holds of
+    ``tree`` (a launcher's record of a sharded state)."""
+    from repro_torch.sharding.placement import device_bytes
+
+    grid = device_bytes(tree, mesh)
+    log.info("mesh %s on %s: %s bytes per device %s", dict(mesh.shape),
+             sorted({str(d) for row in mesh.devices for d in row}), what,
+             grid)
+    return grid

@@ -36,7 +36,7 @@ The language-model path, the twin of ``repro``'s ``--arch`` mode:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         [--reduced] [--batch 4] [--prompt-len 32] [--gen 16] \
-        [--dtype float32|bfloat16] [--seed 0] [--device cpu]
+        [--dtype float32|bfloat16] [--seed 0] [--device cpu] [--mesh DxM]
 
 builds the config's ``LanguageModel`` with weights drawn from ``--seed``,
 prefills ``--batch`` seeded prompts of ``--prompt-len`` tokens (whisper's
@@ -44,8 +44,12 @@ frames and llama-vision's images are seeded too), decodes ``--gen`` tokens
 greedily, and prints the ``(batch, gen)`` token ids as a JSON list.  The
 parameters are cast to ``--dtype`` once, before the decode loop.  It runs
 on the card unless ``--device`` names another device.  Every config of the
-registry runs.  Refused: ``--mesh`` other than ``1x1`` (the sharded LM path
-is not ported yet).
+registry runs.  With ``--mesh DxM`` (``--device`` repeated, as for
+``--eei``) the parameters are placed on the mesh by ``repro``'s specs and
+served through ``train.steps.build_programs`` (prefill and ``serve_step``
+over sharded caches); the mesh and the bytes each of its devices holds
+are logged.  ``--mesh PxDxM`` (``repro``'s pod axis) is refused: it waits
+for the dry-run slice with ``make_production_mesh``.
 """
 
 from __future__ import annotations
@@ -59,7 +63,6 @@ import numpy as np
 import torch
 
 log = logging.getLogger("repro_torch.serve")
-
 
 def lm_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
     """The launcher's seeded prompts: ``tokens`` (and ``labels``, the same)
@@ -87,9 +90,14 @@ def serve_lm(args, cfg):
     from repro_torch.models import LanguageModel
     from repro_torch.train.steps import cast_tree, make_serve_step
 
+    from repro_torch.launch.mesh import parse_mesh
+
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
     smax = args.prompt_len + args.gen
+    mesh = parse_mesh(args.mesh, args.device) if args.mesh != "1x1" else None
+    if mesh is not None and mesh.size > 1:
+        return _serve_lm_mesh(args, cfg, mesh, compute_dtype, smax)
     with torch.inference_mode():
         model = LanguageModel(cfg, device=args.device)
         dev = model.device
@@ -115,6 +123,54 @@ def serve_lm(args, cfg):
         t0 = time.monotonic()
         for i in range(args.gen - 1):
             tok, caches = serve_step(params, caches, tok, args.prompt_len + i)
+            out_tokens.append(tok)
+        gen = torch.stack(out_tokens, dim=1).cpu().numpy()
+        dt = time.monotonic() - t0
+    log.info("decode %d tokens x %d seqs in %.3fs (%.1f tok/s) on %s%s",
+             gen.shape[1], gen.shape[0], dt, gen.size / max(dt, 1e-9), dev,
+             card)
+    print(json.dumps(gen.tolist()))
+    return gen
+
+
+def _serve_lm_mesh(args, cfg, mesh, compute_dtype, smax):
+    """:func:`serve_lm` on a mesh, through ``build_programs``."""
+    from repro_torch.launch.mesh import log_mesh_bytes
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding.placement import put_tree
+    from repro_torch.train.steps import build_programs, cast_tree
+
+    dev = mesh.first_device
+    with torch.inference_mode():
+        model = LanguageModel(cfg, device=dev)
+        card = (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
+                else "")
+        programs = build_programs(model, mesh, compute_dtype=compute_dtype)
+        log.info("lm serve: %s, %d parameters on a %dx%d mesh of %s%s, %s, "
+                 "fsdp=%s, batch=%d prompt=%d gen=%d", cfg.name,
+                 model.n_params(), mesh.shape["data"], mesh.shape["model"],
+                 dev, card, args.dtype, programs.fsdp, args.batch,
+                 args.prompt_len, args.gen)
+        model.init(torch.Generator(device=dev).manual_seed(args.seed))
+        params = cast_tree(put_tree(model.stacked_dict(),
+                                    programs.state_shardings.params),
+                           compute_dtype)
+        model.release()
+        log_mesh_bytes(log, mesh, params, "parameters")
+        batch = lm_batch(cfg, args.batch, args.prompt_len, args.seed, dev)
+        t0 = time.monotonic()
+        logits, caches = programs.prefill(params, batch, smax)
+        tok = torch.argmax(logits, dim=-1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        log.info("prefill %.3fs (B=%d, S=%d)", time.monotonic() - t0,
+                 args.batch, args.prompt_len)
+        log_mesh_bytes(log, mesh, caches, "caches")
+        out_tokens = [tok]
+        t0 = time.monotonic()
+        for i in range(args.gen - 1):
+            tok, caches = programs.serve_step(params, caches, tok,
+                                              args.prompt_len + i)
             out_tokens.append(tok)
         gen = torch.stack(out_tokens, dim=1).cpu().numpy()
         dt = time.monotonic() - t0
@@ -412,14 +468,17 @@ def main(argv=None):
                     "kernels' plain versions, or the LM on the CPU)")
     ap.add_argument("--mesh", default="1x1",
                     help="DxM device mesh: the first D*M cards, or with "
-                    "--device that device repeated; buckets of at least D "
-                    "requests take the sharded backend")
+                    "--device that device repeated; --eei: buckets of at "
+                    "least D requests take the sharded backend; --arch: "
+                    "the model's parameters and caches are sharded on it")
     ap.add_argument("--sharded", action="store_true",
                     help="serve through the sharded backend on the --mesh "
                     "data axis (stack buckets round up to it; needs D >= 2)")
     args = ap.parse_args(argv)
-    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.launch.mesh import POD_MESH_REFUSAL, mesh_axes
 
+    if args.mesh.count("x") == 2:
+        ap.error(POD_MESH_REFUSAL.format(args.mesh))
     try:
         data, model = mesh_axes(args.mesh)
     except ValueError as exc:
@@ -441,9 +500,6 @@ def main(argv=None):
         ap.error(f"--arch: {exc.args[0]}")
     if args.reduced:
         cfg = reduced_config(cfg)
-    if data * model > 1:
-        ap.error(f"--mesh {args.mesh} with --arch: the sharded LM path is "
-                 f"not ported yet")
     logging.basicConfig(level=logging.INFO)
     return serve_lm(args, cfg)
 

@@ -4,7 +4,7 @@
         [--shape train_4k] [--steps 100] [--reduced] [--eigenpre] \
         [--batch 4] [--seq 64] [--microbatch 2] [--dtype float32|bfloat16] \
         [--ckpt-dir artifacts/ckpt] [--ckpt-every 50] [--resume] \
-        [--seed 0] [--log-every 10] [--device cpu]
+        [--seed 0] [--log-every 10] [--device cpu] [--mesh DxM]
 
 Wires together: config registry -> model (weights drawn from ``--seed`` on
 the device) -> ``TrainState`` in ``repro``'s stacked layout -> synthetic
@@ -16,8 +16,13 @@ say otherwise); ``--eigenpre`` trains with ``EigenPre`` over AdamW, whose
 refresh runs the EEI engine's kernels on the card.  It runs on the card
 unless ``--device`` names another device; with no card and no
 ``--device`` it refuses to run.  Every config of the registry trains.
-Refused: ``--mesh`` other than ``1x1`` (the sharded LM path is not ported
-yet).
+``--mesh DxM`` trains on a mesh of the first ``D*M`` cards, or with
+``--device`` that device repeated (a logical mesh on one card, or the CPU):
+the state is placed by ``repro``'s specs (FSDP when
+``fsdp_recommended`` says so for the card's memory) and stepped by
+``train.steps.build_programs``; the mesh and the bytes each of its
+devices holds are logged.  ``--mesh PxDxM`` is refused (it waits for the
+dry-run slice).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from repro_torch.data import PrefetchIterator, make_synthetic
 from repro_torch.optim import AdamW, EigenPre
 from repro_torch.runtime import StragglerWatchdog, Supervisor, SupervisorConfig
 from repro_torch.train import TrainState, make_train_step, put_batch
+from repro_torch.train.steps import build_programs
 
 log = logging.getLogger("repro_torch.train")
 
@@ -46,7 +52,8 @@ def main(argv=None):
     ap.add_argument("--shape", choices=sorted(SHAPES), default="train_4k")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM; only 1x1 (the sharded LM is not ported)")
+                    help="DxM: the first D*M cards, or with --device that "
+                    "device repeated")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size config")
     ap.add_argument("--batch", type=int, default=0,
@@ -65,15 +72,23 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the card)")
     args = ap.parse_args(argv)
-    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.launch.mesh import (
+        POD_MESH_REFUSAL,
+        log_mesh_bytes,
+        mesh_axes,
+        parse_mesh,
+    )
     from repro_torch.models import LanguageModel
+    from repro_torch.sharding.placement import put_tree
 
+    if args.mesh.count("x") == 2:
+        ap.error(POD_MESH_REFUSAL.format(args.mesh))
     try:
         data, model_axis = mesh_axes(args.mesh)
     except ValueError as exc:
         ap.error(f"--mesh: {exc}")
-    if data * model_axis > 1:
-        ap.error(f"--mesh {args.mesh}: the sharded LM path is not ported yet")
+    mesh = (parse_mesh(args.mesh, args.device) if data * model_axis > 1
+            else None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -90,7 +105,8 @@ def main(argv=None):
         shape = ShapeConfig(shape.name, args.seq or 64, args.batch or 4,
                             shape.kind)
 
-    model = LanguageModel(cfg, device=args.device)
+    model = LanguageModel(cfg, device=mesh.first_device if mesh else
+                          args.device)
     dev = model.device
     card = (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
             else "")
@@ -105,8 +121,22 @@ def main(argv=None):
     params = model.stacked_dict()
     state = TrainState(params, optimizer.init(params),
                        torch.zeros((), dtype=torch.int32))
-    train_step = make_train_step(model, optimizer, compute_dtype,
-                                 microbatch=args.microbatch or None)
+    shardings = None
+    if mesh is None:
+        train_step = make_train_step(model, optimizer, compute_dtype,
+                                     microbatch=args.microbatch or None)
+    else:
+        programs = build_programs(model, mesh, optimizer=optimizer,
+                                  compute_dtype=compute_dtype,
+                                  microbatch=args.microbatch or None)
+        shardings = programs.state_shardings
+        state = put_tree(state, shardings)
+        del params
+        model.release()
+        train_step = programs.train_step
+        log.info("%dx%d mesh, fsdp=%s", mesh.shape["data"],
+                 mesh.shape["model"], programs.fsdp)
+        log_mesh_bytes(log, mesh, state, "train state")
 
     manager = CheckpointManager(f"{args.ckpt_dir}/{cfg.name}", keep=3)
     supervisor = Supervisor(
@@ -114,7 +144,7 @@ def main(argv=None):
     supervisor.install_signal_handlers()
     start_step = 0
     if args.resume and manager.latest_step() is not None:
-        state, extra = manager.restore(state)
+        state, extra = manager.restore(state, shardings=shardings)
         start_step = extra.get("data_step", manager.latest_step())
         log.info("resumed at step %s", start_step)
 
@@ -136,6 +166,7 @@ def main(argv=None):
 
     try:
         state = supervisor.run(state, data_iter, step_fn, args.steps,
+                               state_shardings=shardings,
                                on_metrics=on_metrics)
     finally:
         data_iter.close()

@@ -18,9 +18,19 @@ Query head ``h`` reads kv head ``h // rep`` (``q`` reshapes to
 attention) has two computations: prefill materializes per-head K and V
 from the latent and runs the chunked core with V padded to ``qk_dim``;
 decode absorbs ``W_uk`` into the query and attends in the latent space
-over a cache of ``(latent, k_rope)``.  Not ported:
-``_sequence_parallel_qkv``, a sharding hint that is the identity on one
-device; the sharded LM brings it.
+over a cache of ``(latent, k_rope)``.
+
+On a mesh (``train.steps.build_programs``) each data row runs the
+``*_row`` functions below over its model-axis devices, making
+``repro``'s choice (:func:`_sequence_parallel_qkv`): when the model axis
+divides the heads, each device runs its heads (q, k and v by heads, and
+its part of the output projection summed on the row's first device, in float32
+before one rounding, as the unsharded product accumulates);
+otherwise each device runs a slice of the query sequence against the whole
+of K and V.  Decode against a cache split by heads runs each device's
+heads; against a cache split on the sequence (the KV heads do not divide,
+and MLA's latent always) each device attends over its slice and the
+partial softmaxes are combined by their log-sum-exp.
 """
 
 from __future__ import annotations
@@ -33,6 +43,31 @@ import torch
 
 from repro_torch.models import common
 from repro_torch.models.params import ParamDecl, ParamTable
+from repro_torch.sharding import hints
+from repro_torch.sharding.placement import Split
+
+
+def _sequence_parallel_qkv(cfg, q, k, v):
+    """``repro``'s context-parallel fallback for head counts indivisible by
+    the model axis: heads on ``model`` when they divide it, else the query
+    sequence.  The layout requests are recorded (``hints.constrain``) and
+    the tensors returned as they are; the mesh programs make the same
+    choice (:func:`heads_split`)."""
+    if heads_split(cfg, hints.model_axis_size()):
+        if cfg.n_kv_heads % hints.model_axis_size() == 0:
+            k = hints.constrain(k, "data", None, "model", None)
+            v = hints.constrain(v, "data", None, "model", None)
+        q = hints.constrain(q, "data", None, "model", None)
+        return q, k, v
+    q = hints.constrain(q, "data", "model", None, None)
+    k = hints.constrain(k, "data", "model", None, None)
+    v = hints.constrain(v, "data", "model", None, None)
+    return q, k, v
+
+
+def heads_split(cfg, model_size: int) -> bool:
+    """Does a model axis of ``model_size`` split ``cfg``'s heads?"""
+    return cfg.n_heads % model_size == 0
 
 
 class TensorSpec(NamedTuple):
@@ -79,10 +114,11 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return common.matmul(x, w.reshape(d, h * e)).unflatten(-1, (h, e))
 
 
-def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshe,hed->bsd", o, wo)``."""
+def _out(o: torch.Tensor, wo: torch.Tensor, f32: bool = False) -> torch.Tensor:
+    """``einsum("bshe,hed->bsd", o, wo)`` (with ``f32``, a partial sum in
+    at least float32: ``common.matmul``)."""
     h, e, d = wo.shape
-    return common.matmul(o.flatten(-2), wo.reshape(h * e, d))
+    return common.matmul(o.flatten(-2), wo.reshape(h * e, d), f32=f32)
 
 
 # ---------------------------------------------------------------------------
@@ -219,14 +255,16 @@ def self_attention(cfg: AttnConfig, p: dict, x: torch.Tensor,
     if cfg.use_rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _sequence_parallel_qkv(cfg, q, k, v)
     out = chunked_attention(cfg, q, k, v)
     return _out(out, p["wo"]), (k, v)
 
 
 def self_attention_decode(cfg: AttnConfig, p: dict, x: torch.Tensor,
-                          cache: dict, pos: int):
+                          cache: dict, pos: int, f32: bool = False):
     """Single-token decode; the cache entries at ``pos`` are written in
-    place (in the cache's dtype)."""
+    place (in the cache's dtype).  ``f32``: the output projection as a
+    partial sum (:func:`_out`)."""
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
@@ -237,7 +275,7 @@ def self_attention_decode(cfg: AttnConfig, p: dict, x: torch.Tensor,
     cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
     out = decode_attention(cfg, q, cache["k"], cache["v"], pos)
-    return _out(out, p["wo"]), cache
+    return _out(out, p["wo"], f32), cache
 
 
 def attn_cache_spec(cfg: AttnConfig, batch: int, smax: int, dtype):
@@ -256,24 +294,27 @@ def cross_attention(cfg: AttnConfig, p: dict, x: torch.Tensor,
     q = _project(x, p["wq"])
     k = _project(kv_src, p["wk"])
     v = _project(kv_src, p["wv"])
-    xcfg = dataclasses.replace(cfg, causal=False, window=None, use_rope=False)
-    se = k.shape[1]
-    ck = se if se < xcfg.chunk_k else xcfg.chunk_k
-    while se % ck:
-        ck -= 1
-    xcfg = dataclasses.replace(xcfg, chunk_k=ck,
-                               chunk_q=min(xcfg.chunk_q, x.shape[1]))
-    out = chunked_attention(xcfg, q, k, v)
+    out = chunked_attention(_cross_cfg(cfg, x.shape[1], k.shape[1]), q, k, v)
     return _out(out, p["wo"]), (k, v)
 
 
+def _cross_cfg(cfg: AttnConfig, sq: int, se: int) -> AttnConfig:
+    """The cross-attention core's config: bidirectional, no RoPE, chunks
+    fitted to ``sq`` queries and ``se`` encoder positions."""
+    xcfg = dataclasses.replace(cfg, causal=False, window=None, use_rope=False)
+    ck = se if se < xcfg.chunk_k else xcfg.chunk_k
+    while se % ck:
+        ck -= 1
+    return dataclasses.replace(xcfg, chunk_k=ck, chunk_q=min(xcfg.chunk_q, sq))
+
+
 def cross_attention_cached(cfg: AttnConfig, p: dict, x: torch.Tensor,
-                           cache: dict):
+                           cache: dict, f32: bool = False):
     """Decode-side cross-attn against precomputed (k, v): no mask, no
-    softcap (``repro``'s)."""
+    softcap (``repro``'s).  ``f32`` as in :func:`self_attention_decode`."""
     q = _project(x, p["wq"])
     out = _attend_cache(q, cache["k"], cache["v"], cfg.rep)
-    return _out(out, p["wo"]), cache
+    return _out(out, p["wo"], f32), cache
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +383,14 @@ def mla_attention(cfg: MLAConfig, p: dict, x: torch.Tensor,
     """Prefill/train: per-head K and V materialized from the latent, through
     the chunked core with V padded to ``qk_dim``.  Returns (y, the cache
     payload ``(latent, k_rope)``)."""
+    out, kv = _mla_heads(cfg, p, x, positions)
+    return _out(out, p["wo"]), kv
+
+
+def _mla_heads(cfg: MLAConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor):
+    """:func:`mla_attention` up to its output projection: ``(out (B, S, H,
+    v_dim), (latent, k_rope))``."""
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     latent, k_rope = _mla_latent(cfg, p, x, positions)
     k_nope = _project(latent, p["wuk"])
@@ -355,9 +404,10 @@ def mla_attention(cfg: MLAConfig, p: dict, x: torch.Tensor,
         d_model=cfg.d_model, n_heads=h, n_kv_heads=h, head_dim=cfg.qk_dim,
         use_rope=False, chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k,
     )
+    q, k, v = _sequence_parallel_qkv(acfg, q, k, v)
     v_p = torch.nn.functional.pad(v, (0, cfg.qk_dim - cfg.v_dim))
     out = chunked_attention(acfg, q, k, v_p)[..., : cfg.v_dim]
-    return _out(out, p["wo"]), (latent, k_rope)
+    return out, (latent, k_rope)
 
 
 def mla_attention_decode(cfg: MLAConfig, p: dict, x: torch.Tensor,
@@ -392,3 +442,321 @@ def mla_cache_spec(cfg: MLAConfig, batch: int, smax: int, dtype):
         "latent": TensorSpec((batch, smax, cfg.kv_lora_rank), dtype),
         "k_rope": TensorSpec((batch, smax, cfg.qk_rope_dim), dtype),
     }
+
+
+# ---------------------------------------------------------------------------
+# Over a mesh row: the model axis split by heads or by query sequence
+# ---------------------------------------------------------------------------
+#
+# ``p`` maps each weight to its :class:`~repro_torch.sharding.placement.
+# Split` over the row's devices (part ``m`` on ``devices[m]``); ``x`` lies on
+# the row's first device, where every result is summed or concatenated.
+
+
+def _head_shard(cfg: AttnConfig, p: dict, m: int, msz: int):
+    """Device ``m``'s config and weights under the head split: its query
+    heads, and its KV heads (split alike when they divide, else the run of
+    the replicated ``wk``/``wv`` that its query heads read)."""
+    h_loc = cfg.n_heads // msz
+    wk, wv = p["wk"].parts[m], p["wv"].parts[m]
+    if p["wk"].dim is not None:
+        kv_loc = cfg.n_kv_heads // msz
+    else:
+        rep = cfg.rep
+        if h_loc % rep and rep % h_loc:
+            raise NotImplementedError(
+                f"{cfg.n_heads} heads over {msz} devices with {rep} query "
+                f"heads a KV head")
+        lo, hi = m * h_loc // rep, ((m + 1) * h_loc - 1) // rep + 1
+        wk, wv = wk[:, lo:hi], wv[:, lo:hi]
+        kv_loc = hi - lo
+    return (dataclasses.replace(cfg, n_heads=h_loc, n_kv_heads=kv_loc),
+            {"wq": p["wq"].parts[m], "wk": wk, "wv": wv,
+             "wo": p["wo"].parts[m]})
+
+
+def _kv(cfg: AttnConfig, p: dict, src, positions):
+    k, v = _project(src, p["wk"]), _project(src, p["wv"])
+    if cfg.use_rope:
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _qkv(cfg: AttnConfig, p: dict, x, src, positions):
+    q = _project(x, p["wq"])
+    if cfg.use_rope:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+    return (q, *_kv(cfg, p, src, positions))
+
+
+def attention_row(cfg: AttnConfig, p: dict, x, positions, devices,
+                  kv_src=None):
+    """:func:`self_attention` (``kv_src`` None) or :func:`cross_attention`
+    over a row.  Returns ``(y, (k, v))``: under the head split with the KV
+    heads split too, k and v are :class:`Split`s by heads (the cache's
+    layout), else whole tensors."""
+    msz = len(devices)
+    first = x.device
+    src = x if kv_src is None else kv_src
+    acfg = cfg if kv_src is None else _cross_cfg(cfg, x.shape[1], src.shape[1])
+    if not heads_split(cfg, msz):
+        return _seq_split_attention(acfg, p, x, src, positions, devices)
+    ys, ks, vs = [], [], []
+    for m, dev in enumerate(devices):
+        cfg_m, p_m = _head_shard(acfg, p, m, msz)
+        q, k, v = _qkv(cfg_m, p_m, x.to(dev), src.to(dev),
+                       None if positions is None else positions.to(dev))
+        ys.append(_out(chunked_attention(cfg_m, q, k, v), p_m["wo"], f32=True))
+        ks.append(k)
+        vs.append(v)
+    y = common.sum_partials(ys, first, x.dtype)
+    if p["wk"].dim is not None:
+        return y, (Split(tuple(ks), 2), Split(tuple(vs), 2))
+    whole = {n: p[n].parts[0] for n in ("wk", "wv")}
+    return y, _kv(acfg, whole, src, positions)
+
+
+def _seq_split_attention(cfg: AttnConfig, p: dict, x, src, positions,
+                         devices):
+    """The heads do not divide the model axis (every weight is whole on each
+    device): device ``m`` projects its slice of the sequence, K and V are
+    gathered, and it attends its query slice against the whole of them."""
+    msz = len(devices)
+    first = x.device
+    xs = torch.tensor_split(x, msz, dim=1)
+    srcs = torch.tensor_split(src, msz, dim=1)
+    pos = ([None] * msz if positions is None
+           else torch.tensor_split(positions, msz, dim=1))
+    ks, vs = [], []
+    for m, dev in enumerate(devices):
+        w = {n: p[n].parts[m] for n in ("wk", "wv")}
+        k, v = _kv(cfg, w, srcs[m].to(dev),
+                   None if pos[m] is None else pos[m].to(dev))
+        ks.append(k.to(first))
+        vs.append(v.to(first))
+    k, v = torch.cat(ks, dim=1), torch.cat(vs, dim=1)
+    ys, start = [], 0
+    for m, dev in enumerate(devices):
+        q = _project(xs[m].to(dev), p["wq"].parts[m])
+        if cfg.use_rope:
+            q = common.apply_rope(q, pos[m].to(dev), cfg.rope_theta)
+        o = chunked_attention(cfg, q, k.to(dev), v.to(dev), q_start=start)
+        ys.append(_out(o, p["wo"].parts[m]).to(first))
+        start += xs[m].shape[1]
+    return torch.cat(ys, dim=1), (k, v)
+
+
+def _partial(s: torch.Tensor, v: torch.Tensor):
+    """One shard's part of a softmax over its keys: float32 scores ``s``
+    (..., Sk) against values ``v`` (..., Sk, D).  Returns ``(acc, max,
+    sum)``: the unnormalized output, the scores' max and the sum of their
+    exponentials."""
+    mx = torch.amax(s, dim=-1)
+    e = torch.exp(s - mx[..., None])
+    return (e.to(v.dtype).float() @ v.float()), mx, torch.sum(e, dim=-1)
+
+
+def _combine(first, partials) -> torch.Tensor:
+    """The softmax-weighted output from the shards' :func:`_partial`s, by
+    their log-sum-exp (flash-decoding's combine), in float32 on
+    ``first``."""
+    partials = [tuple(t.to(first) for t in pt) for pt in partials]
+    mx = partials[0][1]
+    for _, m, _ in partials[1:]:
+        mx = torch.maximum(mx, m)
+    num, den = None, None
+    for acc, m, l in partials:
+        w = torch.exp(m - mx)
+        num = acc * w[..., None] if num is None else num + acc * w[..., None]
+        den = l * w if den is None else den + l * w
+    return num / den[..., None]
+
+
+def _attended(cache: Split) -> list:
+    """The cache parts a decode step attends: every part of a split cache,
+    the first of a replicated one."""
+    return list(range(len(cache.parts))) if cache.dim is not None else [0]
+
+
+def _heads_of(p: Split, x):
+    """``_project(x, w)`` for a weight split by heads (gathered on x's
+    device) or whole."""
+    if p.dim is None:
+        return _project(x, p.parts[0])
+    return torch.cat([_project(x.to(w.device), w).to(x.device)
+                      for w in p.parts], dim=2)
+
+
+def _out_row(o, wo: Split, first):
+    """``_out(o, wo)`` with ``wo`` split by heads (each device's heads,
+    summed) or whole."""
+    if wo.dim is None:
+        return _out(o, wo.parts[0])
+    h = o.shape[2] // len(wo.parts)
+    return common.sum_partials(
+        [_out(o[:, :, m * h:(m + 1) * h].to(w.device), w, f32=True)
+         for m, w in enumerate(wo.parts)], first, o.dtype)
+
+
+def attention_decode_row(cfg: AttnConfig, p: dict, x, cache: dict, pos: int,
+                         devices, cross: bool = False):
+    """:func:`self_attention_decode` (or, with ``cross``,
+    :func:`cross_attention_cached`) over a row, the cache a :class:`Split`
+    per entry: by heads, each device runs its heads in place; on the
+    sequence (or replicated), the new entries are written where they fall
+    and the shards' partial softmaxes combined."""
+    msz = len(devices)
+    first = x.device
+    if cache["k"].dim == 2:
+        ys = []
+        for m, dev in enumerate(devices):
+            cfg_m, p_m = _head_shard(cfg, p, m, msz)
+            c_m = {"k": cache["k"].parts[m], "v": cache["v"].parts[m]}
+            if cross:
+                y, _ = cross_attention_cached(cfg_m, p_m, x.to(dev), c_m,
+                                              f32=True)
+            else:
+                y, _ = self_attention_decode(cfg_m, p_m, x.to(dev), c_m, pos,
+                                             f32=True)
+            ys.append(y)
+        return common.sum_partials(ys, first, x.dtype), cache
+    b = x.shape[0]
+    q = _heads_of(p["wq"], x)
+    valid = None
+    if not cross:
+        k = _project(x, p["wk"].parts[0])
+        v = _project(x, p["wv"].parts[0])
+        if cfg.use_rope:
+            posb = torch.full((b, 1), pos, device=first)
+            q = common.apply_rope(q, posb, cfg.rope_theta)
+            k = common.apply_rope(k, posb, cfg.rope_theta)
+        cache["k"].write(k.to(cache["k"].parts[0].dtype), 1, pos)
+        cache["v"].write(v.to(cache["v"].parts[0].dtype), 1, pos)
+    h, dh = q.shape[2], q.shape[3]
+    hkv = cfg.n_kv_heads
+    scale = 1.0 / math.sqrt(dh)
+    partials = []
+    for m in _attended(cache["k"]):
+        kc, vc = cache["k"].parts[m], cache["v"].parts[m]
+        dev = kc.device
+        qr = q.reshape(b, hkv, h // hkv, dh).to(dev).float()
+        s = (qr @ kc.permute(0, 2, 3, 1).float()) * scale
+        if not cross:
+            if cfg.softcap is not None:
+                s = common.softcap(s, cfg.softcap)
+            lo = cache["k"].bounds(m)[0] if cache["k"].dim is not None else 0
+            k_pos = lo + torch.arange(kc.shape[1], device=dev)
+            valid = k_pos <= pos
+            if cfg.window is not None:
+                valid = torch.logical_and(valid, k_pos > pos - cfg.window)
+            s = torch.where(valid, s, common.NEG_INF)
+        partials.append(_partial(s, vc.permute(0, 2, 1, 3)))
+    o = _combine(first, partials).reshape(b, 1, h, dh).to(q.dtype)
+    return _out_row(o, p["wo"], first), cache
+
+
+def _mla_shard(p: dict, m: int) -> dict:
+    return {n: w.parts[m] for n, w in p.items()}
+
+
+def mla_attention_row(cfg: MLAConfig, p: dict, x, positions, devices):
+    """:func:`mla_attention` over a row: each device's heads when they
+    divide the model axis, else its slice of the query sequence against
+    the whole latent.  Returns ``(y, (latent, k_rope))``, whole."""
+    msz = len(devices)
+    first = x.device
+    acfg = AttnConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                      n_kv_heads=cfg.n_heads, head_dim=cfg.qk_dim,
+                      use_rope=False, chunk_q=cfg.chunk_q,
+                      chunk_k=cfg.chunk_k)
+    if heads_split(acfg, msz):
+        cfg_m = dataclasses.replace(cfg, n_heads=cfg.n_heads // msz)
+        ys, kv = [], None
+        with hints.paused():
+            for m, dev in enumerate(devices):
+                p_m = _mla_shard(p, m)
+                out, payload = _mla_heads(cfg_m, p_m, x.to(dev),
+                                          positions.to(dev))
+                ys.append(_out(out, p_m["wo"], f32=True))
+                kv = kv or tuple(t.to(first) for t in payload)
+        return common.sum_partials(ys, first, x.dtype), kv
+    xs = torch.tensor_split(x, msz, dim=1)
+    pos = torch.tensor_split(positions, msz, dim=1)
+    qs, lats, ropes = [], [], []
+    for m, dev in enumerate(devices):
+        p_m = _mla_shard(p, m)
+        qs.append(_mla_q(cfg, p_m, xs[m].to(dev), pos[m].to(dev)))
+        lat, kr = _mla_latent(cfg, p_m, xs[m].to(dev), pos[m].to(dev))
+        lats.append(lat.to(first))
+        ropes.append(kr.to(first))
+    latent, k_rope = torch.cat(lats, dim=1), torch.cat(ropes, dim=1)
+    ys, start = [], 0
+    for m, dev in enumerate(devices):
+        p_m = _mla_shard(p, m)
+        lat = latent.to(dev)
+        k_nope, v = _project(lat, p_m["wuk"]), _project(lat, p_m["wuv"])
+        kr = k_rope.to(dev)
+        k_rope_h = kr[:, :, None, :].expand(*kr.shape[:2], cfg.n_heads,
+                                           cfg.qk_rope_dim)
+        q = torch.cat(qs[m], dim=-1)
+        k = torch.cat([k_nope, k_rope_h], dim=-1)
+        v_p = torch.nn.functional.pad(v, (0, cfg.qk_dim - cfg.v_dim))
+        o = chunked_attention(acfg, q, k, v_p, q_start=start)[..., :cfg.v_dim]
+        ys.append(_out(o, p_m["wo"]).to(first))
+        start += xs[m].shape[1]
+    return torch.cat(ys, dim=1), (latent, k_rope)
+
+
+def mla_attention_decode_row(cfg: MLAConfig, p: dict, x, cache: dict,
+                             pos: int, devices):
+    """:func:`mla_attention_decode` over a row: the absorbed query of every
+    head (each device's heads, gathered), the latent cache's sequence
+    shards' partial softmaxes combined, then each device's heads of the
+    value and output projections, summed."""
+    first = x.device
+    b = x.shape[0]
+    posb = torch.full((b, 1), pos, device=first)
+    p0 = _mla_shard(p, 0)
+    split = p["wuq"].dim is not None
+    if split:
+        q_nope, q_abs, q_rope = [], [], []
+        for m, w in enumerate(p["wuq"].parts):
+            dev = w.device
+            p_m = _mla_shard(p, m)
+            qn, qr = _mla_q(cfg, p_m, x.to(dev), posb.to(dev))
+            q_abs.append(common.einsum("bhe,rhe->bhr", qn[:, 0],
+                                       p_m["wuk"]).to(first))
+            q_rope.append(qr[:, 0].to(first))
+        q_abs, q_rope = torch.cat(q_abs, dim=1), torch.cat(q_rope, dim=1)
+    else:
+        qn, qr = _mla_q(cfg, p0, x, posb)
+        q_abs = common.einsum("bhe,rhe->bhr", qn[:, 0], p0["wuk"])
+        q_rope = qr[:, 0]
+    latent_new, k_rope_new = _mla_latent(cfg, p0, x, posb)
+    cache["latent"].write(latent_new.to(cache["latent"].parts[0].dtype), 1,
+                          pos)
+    cache["k_rope"].write(k_rope_new.to(cache["k_rope"].parts[0].dtype), 1,
+                          pos)
+    partials = []
+    for m in _attended(cache["latent"]):
+        lat, kr = cache["latent"].parts[m], cache["k_rope"].parts[m]
+        dev = lat.device
+        s = common.einsum("bhr,bkr->bhk", q_abs.to(dev), lat, f32=True)
+        s = s + common.einsum("bhe,bke->bhk", q_rope.to(dev), kr, f32=True)
+        s = s / math.sqrt(cfg.qk_dim)
+        lo = (cache["latent"].bounds(m)[0]
+              if cache["latent"].dim is not None else 0)
+        k_posn = lo + torch.arange(lat.shape[1], device=dev)
+        s = torch.where((k_posn <= pos)[None, None], s, common.NEG_INF)
+        partials.append(_partial(s, lat))
+    o_lat = _combine(first, partials).to(x.dtype)
+    if not split:
+        out = common.einsum("bhr,rhe->bhe", o_lat, p0["wuv"])
+        return common.einsum("bhe,hed->bd", out, p0["wo"])[:, None], cache
+    h = cfg.n_heads // len(p["wuv"].parts)
+    ys = []
+    for m, w in enumerate(p["wuv"].parts):
+        o_m = o_lat[:, m * h:(m + 1) * h].to(w.device)
+        out = common.einsum("bhr,rhe->bhe", o_m, w)
+        ys.append(common.partial_einsum("bhe,hed->bd", out, p["wo"].parts[m]))
+    return common.sum_partials(ys, first, x.dtype)[:, None], cache

@@ -7,7 +7,8 @@ residual unit.  Attention-family blocks (``attn``, ``attn_local``,
 recurrent blocks (``mamba``, ``mlstm``, ``slstm``) are self-contained.  All
 functions are pure but for decode's cache writes; parameters are flat
 ``{path: tensor}`` dicts scoped by the caller.  A kind ``repro`` does not
-know raises ``ValueError``, as in ``repro``.
+know raises ``ValueError``, as in ``repro``.  The ``*_rows`` functions run
+the blocks over a mesh's data rows (``train.steps.build_programs``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.models.params import (
     merge_tables,
     prefix_table,
 )
+from repro_torch.sharding.placement import Split
 
 #: Self-attention kinds (``repro``'s ``_ATTN_KINDS``).
 _ATTN_KINDS = ("attn", "attn_local", "attn_bidir", "attn_moe", "attn_shared")
@@ -166,7 +168,9 @@ def _sub(p: dict, prefix: str) -> dict:
 def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 ctx: dict):
     """Returns (x, aux_loss, kv) — kv is the prefill cache payload.  Only
-    the MoE kinds have an auxiliary loss (the others' is 0)."""
+    the MoE kinds have an auxiliary loss (the others' is 0); they add their
+    dropped (token, choice) pairs to ``ctx["stats"]`` when it is given
+    (``moe.moe``)."""
     eps = cfg.norm_eps
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in _ATTN_KINDS or kind in ("mla", "mla_moe"):
@@ -178,7 +182,8 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
             h, kv = attn.self_attention(attn_config(cfg, kind),
                                         _sub(p, "attn"), xn, ctx["positions"])
         x = x + h
-        h, aux = _ffn(cfg, kind, p, common.rms_norm(x, p["ln2"], eps))
+        h, aux = _ffn(cfg, kind, p, common.rms_norm(x, p["ln2"], eps),
+                      ctx.get("stats"))
         return x + h, (zero if aux is None else aux), kv
     if kind == "cross":
         acfg = attn_config(cfg, kind)
@@ -216,11 +221,12 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     raise _unknown(kind)
 
 
-def _ffn(cfg: ModelConfig, kind: str, p: dict, xn: torch.Tensor):
+def _ffn(cfg: ModelConfig, kind: str, p: dict, xn: torch.Tensor,
+         stats: dict | None = None):
     """The MoE (kinds ``*_moe``) or the MLP after an attention mixer:
     ``(out, aux)``, aux None for the MLP."""
     if kind in ("attn_moe", "mla_moe"):
-        return moe.moe(moe_config(cfg), _sub(p, "moe"), xn)
+        return moe.moe(moe_config(cfg), _sub(p, "moe"), xn, stats)
     return mlp.mlp(mlp_config(cfg), _sub(p, "mlp"), xn), None
 
 
@@ -246,7 +252,8 @@ def decode_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
             h, cache_new = attn.self_attention_decode(
                 attn_config(cfg, kind), _sub(p, "attn"), xn, cache, pos)
         x = x + h
-        h, _ = _ffn(cfg, kind, p, common.rms_norm(x, p["ln2"], eps))
+        h, _ = _ffn(cfg, kind, p, common.rms_norm(x, p["ln2"], eps),
+                    ctx.get("stats"))
         return x + h, cache_new
     if kind == "cross":
         acfg = attn_config(cfg, kind)
@@ -328,3 +335,227 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, smax: int, dtype):
     if kind == "slstm":
         return xlstm.slstm_cache_spec(slstm_config(cfg), batch, dtype)
     raise _unknown(kind)
+
+
+# ---------------------------------------------------------------------------
+# Over a mesh's data rows
+# ---------------------------------------------------------------------------
+#
+# ``ps[r]`` is row ``r``'s ``{path: Split}`` (``sharding.placement``),
+# ``xs[r]`` its activations on its first device, ``rows[r]`` its devices.
+# The attention mixers split by heads or sequence (``attention.*_row``), the
+# MLPs by columns (``mlp.mlp_row``), the MoE by experts (``moe.moe_rows``);
+# the recurrent kinds gather their weights (and caches) onto the row's first
+# device and run as on one device.  A row of one device (a model axis of 1)
+# runs the unsharded blocks on its shards, the MoE's routing still over
+# every row.
+
+_MOE_KINDS = ("attn_moe", "mla_moe")
+
+
+def _whole(p: dict) -> dict:
+    return {k: v.full() for k, v in p.items()}
+
+
+def _parts0(cache):
+    """A one-device row's cache tree: each :class:`Split`'s one part (views
+    of the shards, written in place)."""
+    return _map_splits(lambda s: s.parts[0], cache)
+
+
+def _mixer_row(cfg: ModelConfig, kind: str, p: dict, xn, ctx, devices):
+    if len(devices) == 1:
+        if kind in ("mla", "mla_moe"):
+            return attn.mla_attention(mla_config(cfg), _whole(_sub(p, "attn")),
+                                      xn, ctx["positions"])
+        return attn.self_attention(attn_config(cfg, kind),
+                                   _whole(_sub(p, "attn")), xn,
+                                   ctx["positions"])
+    if kind in ("mla", "mla_moe"):
+        return attn.mla_attention_row(mla_config(cfg), _sub(p, "attn"), xn,
+                                      ctx["positions"], devices)
+    return attn.attention_row(attn_config(cfg, kind), _sub(p, "attn"), xn,
+                              ctx["positions"], devices)
+
+
+def _mixer_decode_row(cfg, kind, p, xn, cache, ctx, devices):
+    if len(devices) == 1:
+        if kind in ("mla", "mla_moe"):
+            return attn.mla_attention_decode(mla_config(cfg),
+                                             _whole(_sub(p, "attn")), xn,
+                                             _parts0(cache), ctx["pos"])
+        return attn.self_attention_decode(attn_config(cfg, kind),
+                                          _whole(_sub(p, "attn")), xn,
+                                          _parts0(cache), ctx["pos"])
+    if kind in ("mla", "mla_moe"):
+        return attn.mla_attention_decode_row(mla_config(cfg), _sub(p, "attn"),
+                                             xn, cache, ctx["pos"], devices)
+    return attn.attention_decode_row(attn_config(cfg, kind), _sub(p, "attn"),
+                                     xn, cache, ctx["pos"], devices)
+
+
+def apply_block_rows(cfg: ModelConfig, kind: str, ps: list, xs: list,
+                     ctxs: list, rows: list):
+    """:func:`apply_block` over the rows: ``(xs, aux, kvs)``, a payload per
+    row (an attention's k and v may be :class:`Split`s by heads)."""
+    eps = cfg.norm_eps
+    if kind in _MOE_KINDS:
+        mid, hs, kvs = [], [], []
+        for p, x, ctx, devices in zip(ps, xs, ctxs, rows):
+            h, kv = _mixer_row(cfg, kind, p,
+                               common.rms_norm(x, p["ln1"].full(), eps), ctx,
+                               devices)
+            x = x + h
+            mid.append(x)
+            hs.append(common.rms_norm(x, p["ln2"].full(), eps))
+            kvs.append(kv)
+        ys, aux = moe.moe_rows(moe_config(cfg), [_sub(p, "moe") for p in ps],
+                               hs, rows, ctxs[0].get("stats"))
+        return [x + y for x, y in zip(mid, ys)], aux, kvs
+    out = [_apply_block_row(cfg, kind, p, x, ctx, devices)
+           for p, x, ctx, devices in zip(ps, xs, ctxs, rows)]
+    zero = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    return [o[0] for o in out], zero, [o[1] for o in out]
+
+
+def _apply_block_row(cfg, kind, p, x, ctx, devices):
+    eps = cfg.norm_eps
+    mcfg = mlp_config(cfg)
+    if len(devices) == 1 and kind not in _MOE_KINDS:
+        x, _, kv = apply_block(cfg, kind, _whole(p), x, ctx)
+        return x, kv
+    if kind in _ATTN_KINDS or kind == "mla":
+        h, kv = _mixer_row(cfg, kind, p,
+                           common.rms_norm(x, p["ln1"].full(), eps), ctx,
+                           devices)
+        x = x + h
+        h = mlp.mlp_row(mcfg, _sub(p, "mlp"),
+                        common.rms_norm(x, p["ln2"].full(), eps), devices)
+        return x + h, kv
+    if kind == "cross":
+        h, kv = attn.attention_row(
+            attn_config(cfg, kind), _sub(p, "xattn"),
+            common.rms_norm(x, p["ln1"].full(), eps), None, devices,
+            kv_src=ctx["kv_src"])
+        x = x + torch.tanh(p["xgate"].full()).to(x.dtype) * h
+        h = mlp.mlp_row(mcfg, _sub(p, "mlp"),
+                        common.rms_norm(x, p["ln2"].full(), eps), devices)
+        return x + h, kv
+    if kind == "dec_cross":
+        acfg = attn_config(cfg, kind)
+        h, kv_self = attn.attention_row(
+            acfg, _sub(p, "attn"), common.rms_norm(x, p["ln1"].full(), eps),
+            ctx["positions"], devices)
+        x = x + h
+        h, kv_cross = attn.attention_row(
+            acfg, _sub(p, "xattn"), common.rms_norm(x, p["lnx"].full(), eps),
+            None, devices, kv_src=ctx["kv_src"])
+        x = x + h
+        h = mlp.mlp_row(mcfg, _sub(p, "mlp"),
+                        common.rms_norm(x, p["ln2"].full(), eps), devices)
+        return x + h, (kv_self, kv_cross)
+    if kind in ("mamba", "mlstm", "slstm"):
+        x, _, kv = apply_block(cfg, kind, _whole(p), x, ctx)
+        return x, kv
+    raise _unknown(kind)
+
+
+def decode_block_rows(cfg: ModelConfig, kind: str, ps: list, xs: list,
+                      caches: list, ctx: dict, rows: list) -> list:
+    """:func:`decode_block` over the rows, each row's cache a tree of
+    :class:`Split`s updated in place.  Returns the rows' outputs."""
+    eps = cfg.norm_eps
+    if kind in _MOE_KINDS:
+        mid, hs = [], []
+        for p, x, cache, devices in zip(ps, xs, caches, rows):
+            h, _ = _mixer_decode_row(cfg, kind, p,
+                                     common.rms_norm(x, p["ln1"].full(), eps),
+                                     cache, ctx, devices)
+            x = x + h
+            mid.append(x)
+            hs.append(common.rms_norm(x, p["ln2"].full(), eps))
+        ys, _ = moe.moe_rows(moe_config(cfg), [_sub(p, "moe") for p in ps],
+                             hs, rows, ctx.get("stats"))
+        return [x + y for x, y in zip(mid, ys)]
+    return [_decode_block_row(cfg, kind, p, x, cache, ctx, devices)
+            for p, x, cache, devices in zip(ps, xs, caches, rows)]
+
+
+def _decode_block_row(cfg, kind, p, x, cache, ctx, devices):
+    eps = cfg.norm_eps
+    mcfg = mlp_config(cfg)
+    if len(devices) == 1 and kind not in ("mamba", "mlstm", "slstm"):
+        return decode_block(cfg, kind, _whole(p), x, _parts0(cache), ctx)[0]
+    if kind in _ATTN_KINDS or kind == "mla":
+        h, _ = _mixer_decode_row(cfg, kind, p,
+                                 common.rms_norm(x, p["ln1"].full(), eps),
+                                 cache, ctx, devices)
+        x = x + h
+        return x + mlp.mlp_row(mcfg, _sub(p, "mlp"),
+                               common.rms_norm(x, p["ln2"].full(), eps),
+                               devices)
+    if kind in ("cross", "dec_cross"):
+        acfg = attn_config(cfg, kind)
+        xcache = cache
+        if kind == "dec_cross":
+            h, _ = attn.attention_decode_row(
+                acfg, _sub(p, "attn"), common.rms_norm(x, p["ln1"].full(), eps),
+                cache["self"], ctx["pos"], devices)
+            x = x + h
+            xcache = cache["cross"]
+        norm = "lnx" if kind == "dec_cross" else "ln1"
+        h, _ = attn.attention_decode_row(
+            acfg, _sub(p, "xattn"), common.rms_norm(x, p[norm].full(), eps),
+            xcache, ctx["pos"], devices, cross=True)
+        if kind == "cross":
+            h = torch.tanh(p["xgate"].full()).to(x.dtype) * h
+        x = x + h
+        return x + mlp.mlp_row(mcfg, _sub(p, "mlp"),
+                               common.rms_norm(x, p["ln2"].full(), eps),
+                               devices)
+    if kind in ("mamba", "mlstm", "slstm"):
+        whole = _map_splits(lambda s: s.full(), cache)
+        x, whole = decode_block(cfg, kind, _whole(p), x, whole, ctx)
+        _map_splits(lambda s, w: s.write(w), cache, whole)
+        return x
+    raise _unknown(kind)
+
+
+def _map_splits(fn, tree, *rest):
+    """``fn`` over the :class:`Split` leaves of a cache tree."""
+    if isinstance(tree, dict):
+        return {k: _map_splits(fn, v, *(o[k] for o in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_splits(fn, v, *(o[i] for o in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def payload_to_split_cache(kind: str, payload, cache, s: int):
+    """Write one row's prefill payload into its cache :class:`Split`s
+    (positions ``[0, s)`` of the self-attention and latent caches; the
+    cross-attention caches and recurrent states whole)."""
+    def put(split, value, dim=1):
+        if isinstance(value, Split):
+            for part, v in zip(split.parts, value.parts):
+                part.narrow(dim, 0, v.shape[dim]).copy_(v)
+        else:
+            split.write(value, dim, 0)
+
+    if kind in _ATTN_KINDS or kind == "cross":
+        put(cache["k"], payload[0])
+        put(cache["v"], payload[1])
+    elif kind in ("mla", "mla_moe"):
+        put(cache["latent"], payload[0])
+        put(cache["k_rope"], payload[1])
+    elif kind == "dec_cross":
+        payload_to_split_cache("attn", payload[0], cache["self"], s)
+        payload_to_split_cache("cross", payload[1], cache["cross"], s)
+    elif kind in ("mamba", "mlstm"):
+        _map_splits(lambda sp, v: sp.write(v, 0, 0), cache, payload)
+    elif kind == "slstm":
+        _map_splits(lambda sp, v: sp.write(v, 0, 0), cache,
+                    {"carry": list(payload)})
+    else:
+        raise _unknown(kind)

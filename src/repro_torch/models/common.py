@@ -11,11 +11,15 @@ import torch
 import torch.nn.functional as F
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor, f32: bool = False) -> torch.Tensor:
     """``a @ b`` in the two operands' promoted dtype, as ``jnp.einsum``
     promotes mixed operands (float32 frames against bfloat16 weights in
-    whisper's encoder)."""
+    whisper's encoder).  With ``f32``, the product in at least float32 and
+    returned so (a partial sum that a mesh program adds to others before
+    one rounding to the operands' dtype)."""
     dt = torch.promote_types(a.dtype, b.dtype)
+    if f32:
+        dt = torch.promote_types(dt, torch.float32)
     return a.to(dt) @ b.to(dt)
 
 
@@ -28,6 +32,28 @@ def einsum(eq: str, *ops: torch.Tensor, f32: bool = False) -> torch.Tensor:
         dt = torch.promote_types(dt, o.dtype)
     out = torch.einsum(eq, *(o.to(dt) for o in ops))
     return out.float() if f32 else out
+
+
+def partial_einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(eq, *ops)`` in at least float32, returned so: one
+    device's part of a product that a mesh program sums over its devices
+    before one rounding to the operands' dtype (the unsharded product's
+    float32 accumulation, in another order)."""
+    dt = torch.float32
+    for o in ops:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
+def sum_partials(parts, device, dtype) -> torch.Tensor:
+    """The devices' partial sums of a product (each in at least float32)
+    added on ``device`` in device order and rounded once to ``dtype``, as
+    the unsharded product accumulates before its one rounding."""
+    out = None
+    for t in parts:
+        t = t.to(device)
+        out = t if out is None else out + t
+    return out.to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -10,8 +10,11 @@ Routing reproduces ``jax.lax.top_k``'s order on ties (the lower expert
 index first) with a stable descending sort: ``torch.topk`` promises no
 order among equal values, and ties are common once the router's logits
 come from a bfloat16 product.  ``repro`` pins the dispatch tensors'
-shardings with ``hints.constrain``; on one device those hints have no
-numeric effect, and the sharded LM (``ROADMAP.md`` Queue 1) brings them.
+shardings with ``hints.constrain``; the port records the same requests
+(``sharding.hints``), and :func:`moe_rows` runs the layer over a mesh.
+Given a ``stats`` dict, a routing adds the count of (token, choice) pairs
+it dropped past capacity to ``stats["moe_dropped"]``, a list with an entry
+a routing.
 
 Faithfulness notes (``repro``'s): DeepSeek-V3 routes with sigmoid and a
 bias correction and is dropless; this is softmax top-k with capacity
@@ -21,11 +24,14 @@ dropping plus a shared expert.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.models import common
+from repro_torch.models.mlp import split_mlp
 from repro_torch.models.params import ParamDecl, ParamTable
+from repro_torch.sharding import hints
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,17 +91,37 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe(cfg: MoEConfig, p: dict, x: torch.Tensor):
-    """x: (B, S, d) -> (y, aux_loss)."""
+def moe(cfg: MoEConfig, p: dict, x: torch.Tensor, stats: dict | None = None):
+    """x: (B, S, d) -> (y, aux_loss); the dropped pairs into ``stats``."""
     b, s, d = x.shape
     tokens = b * s
     g_size = group_size(cfg, tokens)
     n_groups = tokens // g_size
-    cap = _capacity(cfg, g_size)
-    e = cfg.n_experts
 
     xg = x.reshape(n_groups, g_size, d)
     logits = common.matmul(xg, p["router"]).float()
+    probs, sel, dispatch, combine = _route(cfg, logits, g_size)
+
+    # repro pins these layouts: tokens (g) on data, experts (e) on model.
+    dispatch = hints.constrain(dispatch, "data", None, "model", None)
+    combine = hints.constrain(combine, "data", None, "model", None)
+    y = _experts(p, dispatch, combine, xg, constrain=True)
+    y = hints.constrain(y, "data", None, None)
+    y = y.reshape(b, s, d)
+
+    if cfg.n_shared:
+        y = y + _shared_mlp(cfg, p, x)
+
+    lb, z, dropped = _aux_sums(sel, probs, logits)
+    _add_dropped(stats, dropped)
+    return y, _aux(cfg, lb, z, n_groups, g_size)
+
+
+def _route(cfg: MoEConfig, logits: torch.Tensor, g_size: int):
+    """Top-k routing of float32 router ``logits`` (g, t, e) with capacity
+    dropping.  Returns ``(probs, sel, dispatch, combine)``."""
+    n_groups, e = logits.shape[0], cfg.n_experts
+    cap = _capacity(cfg, g_size)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, cfg.top_k)  # (g,t,k)
     gate_vals = gate_vals / torch.clamp(
@@ -107,34 +133,137 @@ def moe(cfg: MoEConfig, p: dict, x: torch.Tensor):
     sel_flat = sel.transpose(1, 2).reshape(n_groups, cfg.top_k * g_size, e)
     pos_flat = torch.cumsum(sel_flat, dim=1) - sel_flat  # (g, k*t, e)
     pos = pos_flat.reshape(n_groups, cfg.top_k, g_size, e).transpose(1, 2)
-    within_cap = pos < cap
-    sel = sel * within_cap
+    sel = sel * (pos < cap)
     pos = torch.sum(pos * sel, dim=-1).to(torch.int32)  # (g,t,k) slot index
 
     dispatch = torch.einsum("gtke,gtkc->gtec", sel, _one_hot(pos, cap))
     combine = dispatch * torch.sum(gate_vals[..., None] * sel, dim=2)[..., None]
+    return probs, sel, dispatch, combine
 
-    x_e = common.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)  # (g,e,c,d)
+
+def _experts(p: dict, dispatch, combine, xg, constrain: bool = False,
+             partial: bool = False):
+    """The experts of ``p`` (``w_gate``, ``w_up``, ``w_down`` on a leading
+    expert axis) on their capacity slots: ``dispatch`` and ``combine``
+    (g, t, e, c) name the same experts.  Returns (g, t, d); with
+    ``partial``, the combine's product in at least float32 (one device's
+    part of a sum over the model axis)."""
+    dt = xg.dtype
+    hint = hints.constrain if constrain else (lambda x, *a: x)
+    x_e = common.einsum("gtec,gtd->gecd", dispatch.to(dt), xg)  # (g,e,c,d)
+    x_e = hint(x_e, "data", "model", None, None)
     h = common.swiglu(
         common.einsum("gecd,edf->gecf", x_e, p["w_gate"]),
         common.einsum("gecd,edf->gecf", x_e, p["w_up"]),
     )
+    h = hint(h, "data", "model", None, None)
     y_e = common.einsum("gecf,efd->gecd", h, p["w_down"])
-    y = common.einsum("gtec,gecd->gtd", combine.to(x.dtype), y_e)
-    y = y.reshape(b, s, d)
+    y_e = hint(y_e, "data", "model", None, None)
+    if partial:
+        return common.partial_einsum("gtec,gecd->gtd", combine.to(dt), y_e)
+    return common.einsum("gtec,gecd->gtd", combine.to(dt), y_e)
 
-    if cfg.n_shared:
-        y = y + _shared_mlp(cfg, p, x)
 
-    # Aux losses: load balance (Switch) + router z-loss.
+def _aux_sums(sel, probs, logits):
+    """The load-balance and z-loss sums over a set of groups (``repro``'s
+    means times their counts), and the (token, choice) pairs that ``sel``
+    (g, t, k, e), one-hot before the capacity cut, dropped."""
     density = torch.mean(sel.sum(dim=2), dim=1)  # (g, e) fraction routed
     density_prob = torch.mean(probs, dim=1)  # (g, e)
-    lb = torch.mean(density * density_prob) * (e**2) * cfg.load_balance_weight
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * cfg.router_z_weight
-    return y, lb + z
+    return (torch.sum(density * density_prob),
+            torch.sum(torch.logsumexp(logits, dim=-1) ** 2),
+            math.prod(sel.shape[:3]) - torch.sum(sel))
+
+
+def _add_dropped(stats: dict | None, dropped: torch.Tensor):
+    if stats is not None:
+        stats.setdefault("moe_dropped", []).append(dropped)
+
+
+def _aux(cfg: MoEConfig, lb_sum, z_sum, n_groups: int, g_size: int):
+    """Aux losses: load balance (Switch) + router z-loss, from
+    :func:`_aux_sums` over ``n_groups`` groups."""
+    e = cfg.n_experts
+    lb = lb_sum / (n_groups * e) * (e**2) * cfg.load_balance_weight
+    z = z_sum / (n_groups * g_size) * cfg.router_z_weight
+    return lb + z
+
+
+def moe_rows(cfg: MoEConfig, ps: list, xs: list, rows: list,
+             stats: dict | None = None):
+    """:func:`moe` over a mesh's data rows: ``xs[r]`` (B_r, S, d) on row
+    ``r``'s first device, ``ps[r]`` its ``{path: Split}``, ``rows[r]`` its
+    devices.  Returns ``(ys, aux)``; the layer's dropped pairs, summed over
+    its groups, go into ``stats`` as one entry.
+
+    The groups and capacity are those of the global token count, as in
+    ``repro``'s program for global shapes.  A row runs the groups that lie
+    in it; when a group would straddle rows, every row's tokens are
+    gathered onto the first row.  The router's weight (a few MB) is
+    gathered whole, so that the routing of the same tokens is the
+    unsharded layer's, bit for bit.  Within a row of several devices the
+    experts split over the model axis when it divides them: each device runs its experts'
+    capacity slots and the combined outputs are summed in float32 before
+    one rounding.  The dispatch, combine and output tensors take ``repro``'s
+    layout requests, and the experts' own when they run whole.
+    """
+    d = xs[0].shape[-1]
+    tokens = [x.shape[0] * x.shape[1] for x in xs]
+    total = sum(tokens)
+    g_size = group_size(cfg, total)
+    units = ([[r] for r in range(len(xs))]
+             if all(t % g_size == 0 for t in tokens) else [list(range(len(xs)))])
+    ys = [None] * len(xs)
+    lb_sum = z_sum = dropped = None
+    for unit in units:
+        r0 = unit[0]
+        first = xs[r0].device
+        p, devices = ps[r0], rows[r0]
+        xg = torch.cat([xs[r].reshape(-1, d).to(first) for r in unit])
+        xg = xg.reshape(-1, g_size, d)
+        logits = common.matmul(xg, p["router"].full()).float()
+        probs, sel, dispatch, combine = _route(cfg, logits, g_size)
+        dispatch = hints.constrain(dispatch, "data", None, "model", None)
+        combine = hints.constrain(combine, "data", None, "model", None)
+        experts = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
+        if experts["w_gate"].dim is None or len(devices) == 1:
+            y = _experts({n: w.parts[0] for n, w in experts.items()},
+                         dispatch, combine, xg, constrain=True)
+        else:
+            e_loc = cfg.n_experts // len(devices)
+            parts = []
+            for m, dev in enumerate(devices):
+                sl = slice(m * e_loc, (m + 1) * e_loc)
+                parts.append(_experts(
+                    {n: w.parts[m] for n, w in experts.items()},
+                    dispatch[:, :, sl].to(dev), combine[:, :, sl].to(dev),
+                    xg.to(dev), partial=True))
+            y = common.sum_partials(parts, first, xg.dtype)
+        y = hints.constrain(y, "data", None, None).reshape(-1, d)
+        off = 0
+        for r in unit:
+            ys[r] = y[off:off + tokens[r]].reshape(xs[r].shape).to(
+                xs[r].device)
+            off += tokens[r]
+        lb, z, drop = _aux_sums(sel, probs, logits)
+        lb_sum = lb if lb_sum is None else lb_sum + lb.to(lb_sum.device)
+        z_sum = z if z_sum is None else z_sum + z.to(z_sum.device)
+        dropped = drop if dropped is None else dropped + drop.to(
+            dropped.device)
+    _add_dropped(stats, dropped)
+    if cfg.n_shared:
+        for r, x in enumerate(xs):
+            shared = {n: w for n, w in ps[r].items()
+                      if n.startswith("shared/")}
+            ys[r] = ys[r] + split_mlp(_shared_hidden, shared, x, rows[r],
+                                      down="shared/w_down")
+    return ys, _aux(cfg, lb_sum, z_sum, total // g_size, g_size)
 
 
 def _shared_mlp(cfg: MoEConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = common.swiglu(common.matmul(x, p["shared/w_gate"]),
-                      common.matmul(x, p["shared/w_up"]))
-    return common.matmul(h, p["shared/w_down"])
+    return common.matmul(_shared_hidden(p, x), p["shared/w_down"])
+
+
+def _shared_hidden(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return common.swiglu(common.matmul(x, p["shared/w_gate"]),
+                         common.matmul(x, p["shared/w_up"]))

@@ -2,8 +2,10 @@
 
 Every model declares its parameters once as a flat ``{path: ParamDecl}``
 table, in ``repro``'s einsum layouts (``wq`` is ``(d, heads, head_dim)``).
-The table drives :func:`init_one` and :func:`num_params`; its logical axis
-names are kept for the sharded LM, which is not ported yet.  ``repro``
+The table drives :func:`init_one`, :func:`num_params`,
+:func:`abstract_params` (``"meta"`` tensors, no allocation) and
+:func:`logical_axes`, the per-parameter logical axis names that
+``repro_torch.sharding.rules`` maps to mesh axes.  ``repro``
 draws from JAX's PRNG, whose bits cannot be matched: parity tests carry
 ``repro``'s weights across (``interop.params_from_reference``).
 
@@ -99,6 +101,17 @@ def init_one(decl: ParamDecl, out: torch.Tensor,
     if std != 1.0:
         draw.mul_(std)
     return out.copy_(draw)
+
+
+def abstract_params(table: ParamTable, dtype=torch.float32) -> dict:
+    """``{path: "meta" tensor}`` stand-ins (``repro``'s ``ShapeDtypeStruct``
+    ones), in sorted path order."""
+    return {p: torch.empty(d.shape, dtype=dtype, device="meta")
+            for p, d in sorted(table.items())}
+
+
+def logical_axes(table: ParamTable) -> dict[str, tuple[str | None, ...]]:
+    return {p: d.axes for p, d in table.items()}
 
 
 def num_params(table: ParamTable) -> int:

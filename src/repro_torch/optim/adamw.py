@@ -47,11 +47,12 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: dict, state: AdamWState, params: dict,
-               lr_scale=1.0):
+               lr_scale=1.0, gnorm=None):
         """Returns ``(params, state, {"grad_norm": ...})``, the parameters
-        and moments updated in place."""
+        and moments updated in place.  ``gnorm``: the gradients' global
+        norm when the caller has it (:meth:`update_sharded`)."""
         count = state.count + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if gnorm is None else gnorm
         clip = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
         c32 = count.to(torch.float32)
@@ -60,7 +61,7 @@ class AdamW:
         scale = -self.lr * torch.as_tensor(lr_scale, dtype=torch.float32)
         for k in sorted(params):
             p, m, v = params[k], state.m[k], state.v[k]
-            g = grads[k].float() * clip
+            g = grads[k].float() * clip.to(p.device)
             m_new = self.b1 * m.float() + (1 - self.b1) * g
             v.mul_(self.b2).add_((1 - self.b2) * g * g)
             del g
@@ -70,6 +71,39 @@ class AdamW:
             step = step + self.weight_decay * p.float()
             p.add_((scale * step).to(p.dtype))
         return params, AdamWState(count, state.m, state.v), {"grad_norm": gnorm}
+
+
+    def update_sharded(self, grads: dict, state: AdamWState, params: dict,
+                       lr_scale=1.0):
+        """:meth:`update` of ``Sharded`` trees (``train.steps.
+        build_programs``): every shard of every position once, with the
+        global norm of :func:`sharded_global_norm`.  Returns ``(params,
+        state, metrics)``, updated in place."""
+        _, new, metrics = self.update(
+            _flat(grads), AdamWState(state.count, _flat(state.m),
+                                     _flat(state.v)),
+            _flat(params), lr_scale, gnorm=sharded_global_norm(grads))
+        return params, AdamWState(new.count, state.m, state.v), metrics
+
+
+def _flat(tree: dict) -> dict:
+    """``{(key, r, m): shard}`` of a ``{key: Sharded}`` dict."""
+    return {(k, r, m): t for k, sh in tree.items()
+            for r, row in enumerate(sh.shards) for m, t in enumerate(row)}
+
+
+def sharded_global_norm(tree: dict) -> torch.Tensor:
+    """:func:`global_norm` of a ``{key: Sharded}`` dict: each distinct
+    slice counted once, in sorted key order and row-major position order,
+    summed on the first position's device."""
+    from repro_torch.sharding.placement import distinct
+
+    total = None
+    for k in sorted(tree):
+        for x in distinct(tree[k]):
+            s = torch.sum(x.float() * x.float())
+            total = s if total is None else total + s.to(total.device)
+    return torch.sqrt(total)
 
 
 def global_norm(tree: dict) -> torch.Tensor:

@@ -83,6 +83,40 @@ class EigenPre:
                lr_scale=1.0):
         """Returns ``(params, state, metrics)``; the parameters and AdamW's
         moments are updated in place (``AdamW.update``)."""
+        grads_p, gram, eigvals, eigvecs = self._precondition(grads, state)
+        # 4. AdamW on preconditioned gradients
+        new_params, adamw_state, metrics = self.adamw.update(
+            grads_p, state.adamw, params, lr_scale)
+        return new_params, EigenPreState(adamw_state, gram, eigvals,
+                                         eigvecs), metrics
+
+    @torch.no_grad()
+    def update_sharded(self, grads: dict, state: EigenPreState, params: dict,
+                       lr_scale=1.0):
+        """:meth:`update` on a mesh (``train.steps.build_programs``): the
+        parameters, gradients and AdamW's moments are ``Sharded``, the
+        grams and factors whole on the mesh's first device.  An eligible
+        parameter's gradient is gathered there, its gram accumulated and
+        (at a refresh) its top eigenpairs found by the engine's kernels; the
+        preconditioned gradient is split back to its shards, and AdamW
+        updates every shard (``AdamW.update_sharded``)."""
+        from repro_torch.sharding.placement import put
+
+        eligible = {k for k, gr in state.gram.items() if gr.shape[0] > 1}
+        whole = {k: grads[k].gather(gr.device) if k in eligible else grads[k]
+                 for k, gr in state.gram.items()}
+        grads_p, gram, eigvals, eigvecs = self._precondition(whole, state)
+        grads_p = {k: put(g, grads[k].sharding) if k in eligible else g
+                   for k, g in grads_p.items()}
+        new_params, adamw_state, metrics = self.adamw.update_sharded(
+            grads_p, state.adamw, params, lr_scale)
+        return new_params, EigenPreState(adamw_state, gram, eigvals,
+                                         eigvecs), metrics
+
+    def _precondition(self, grads: dict, state: EigenPreState):
+        """Steps 1-3 of the update: ``(preconditioned grads, gram,
+        eigvals, eigvecs)``; a gradient of an ineligible parameter is
+        passed through as it is."""
         # 1. accumulate gram factors
         gram = {}
         for k, gr in state.gram.items():
@@ -114,12 +148,7 @@ class EigenPre:
             scale = scale / torch.clamp(torch.max(scale), min=1e-12)  # graft
             corrected = (scale - 1.0)[:, None] * proj
             grads_p[k] = (g32 + vec.T @ corrected).to(g.dtype)
-
-        # 4. AdamW on preconditioned gradients
-        new_params, adamw_state, metrics = self.adamw.update(
-            grads_p, state.adamw, params, lr_scale)
-        return new_params, EigenPreState(adamw_state, gram, eigvals,
-                                         eigvecs), metrics
+        return grads_p, gram, eigvals, eigvecs
 
     def _topk(self, gr: torch.Tensor):
         """The top ``min(rank, d)`` eigenpairs of ``gr + eps I``, padded to

@@ -1,7 +1,6 @@
 """Runtime support: deterministic fault injection, retry and restart
 schedules, the training supervisor, straggler detection, rendezvous
-routing and elastic meshes (the ported part of ``repro.runtime``;
-``reshard_state`` waits with the sharded LM)."""
+routing, elastic meshes and resharding (``repro.runtime``)."""
 
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     Preempted,
@@ -14,6 +13,7 @@ from repro_torch.runtime.straggler import StragglerWatchdog  # noqa: F401
 from repro_torch.runtime.elastic import (  # noqa: F401
     best_grid,
     make_elastic_mesh,
+    reshard_state,
     route_key,
 )
 from repro_torch.runtime.chaos import (  # noqa: F401

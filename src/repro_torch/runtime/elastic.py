@@ -3,8 +3,8 @@
 The port's part of ``repro.runtime.elastic``: :func:`route_key`, the hash
 ``engine.fleet`` routes requests and sessions with, and the mesh helpers
 :func:`best_grid` and :func:`make_elastic_mesh`, which rebuild a mesh from
-the devices that survive.  ``repro``'s ``reshard_state`` restores a
-training checkpoint onto the new mesh; it waits with the port's trainer.
+the devices that survive, and :func:`reshard_state`, which restores a
+training checkpoint onto the new mesh.
 """
 
 from __future__ import annotations
@@ -71,3 +71,25 @@ def make_elastic_mesh(model_parallel: int, devices=None):
         devices = [torch.device("cuda", i) for i in range(count)]
     data, model = best_grid(len(devices), model_parallel)
     return make_local_mesh(data, model, devices=devices)
+
+
+def reshard_state(manager, abstract_state, mesh, model, fsdp=None, step=None):
+    """Restore the latest checkpoint (or ``step``) onto ``mesh`` (any size):
+    ``repro``'s, with the optimizer state's specs taken from
+    ``abstract_state``'s kind (AdamW's, or ``EigenPre``'s grams whole on the
+    mesh's first device).  ``fsdp`` None decides as ``build_programs``
+    does.  Returns (state, extra)."""
+    from repro_torch.sharding import placement
+    from repro_torch.sharding import rules as rules_lib
+    from repro_torch.train import steps as steps_lib
+
+    if fsdp is None:
+        fsdp = rules_lib.fsdp_recommended(model.n_params(), mesh,
+                                          rules_lib.chip_memory(mesh))
+    rules = rules_lib.make_rules(mesh, fsdp=fsdp)
+    ps = steps_lib.param_pspecs(model, rules)
+    specs = steps_lib.TrainState(
+        ps, steps_lib.optimizer_state_pspecs(abstract_state.opt_state, ps),
+        rules_lib.P())
+    return manager.restore(abstract_state, step=step,
+                           shardings=placement.shardings_of(mesh, specs))

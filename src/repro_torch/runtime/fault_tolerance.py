@@ -115,9 +115,12 @@ class Supervisor:
         data_iter,
         step_fn: Callable,  # (state, batch) -> (state, metrics)
         n_steps: int,
+        state_shardings=None,
         on_metrics: Callable | None = None,
     ):
-        """Run to ``n_steps`` with retry/rollback. Returns final state."""
+        """Run to ``n_steps`` with retry/rollback. Returns final state.
+        ``state_shardings`` places a rolled-back state on its mesh
+        (``CheckpointManager.restore(shardings=)``)."""
         retries = 0
         step = int(_get_step(state))
         if self.manager.latest_step() is None:
@@ -157,7 +160,8 @@ class Supervisor:
                     raise
                 latest = self.manager.latest_step()
                 if latest is not None:
-                    state, extra = self.manager.restore(state)
+                    state, extra = self.manager.restore(
+                        state, shardings=state_shardings)
                     step = latest
                     skip = extra.get("data_step", step)
                     if isinstance(e, FloatingPointError):

@@ -909,3 +909,99 @@ def test_train_step_on_the_card(cuda_device):
         got = card.params[k].cpu()
         assert bool(torch.isfinite(got).all()), k
         assert float((got - p).abs().max()) <= 2 * opt.adamw.lr, k
+
+
+@pytest.mark.parametrize("spec", ["1x2", "2x1", "1x3"])
+def test_mesh_lm_serves_on_a_logical_mesh_of_the_card(cuda_device, spec):
+    """Reduced gemma2-2b on a logical mesh of the card (the card repeated,
+    ``build_programs``): prefill's last logits and 4 decode steps
+    teacher-forced with the 1x1 path's tokens within 1e-5 of max |logit|
+    of the 1x1 path on the card (``tests/test_torch_sharded_lm.py``'s
+    float32 bound), the caches held as shards on the mesh."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding.placement import Sharded, put_tree
+    from repro_torch.train.steps import build_programs
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = reduced_config(get_config("gemma2-2b"))
+        model = LanguageModel(cfg, device=cuda_device).init(
+            torch.Generator(device=cuda_device).manual_seed(2))
+        batch = lm_batch(cfg, 2, 40, 2, cuda_device)
+        params = model.param_dict()
+        logits, caches = model.prefill(params, batch, 48)
+        ref, toks = [logits], []
+        for i in range(4):
+            toks.append(ref[-1].argmax(-1))
+            logits, caches = model.decode_step(params, caches, toks[-1],
+                                               40 + i)
+            ref.append(logits)
+        mesh = parse_mesh(spec, cuda_device)
+        progs = build_programs(model, mesh, compute_dtype=torch.float32)
+        placed = put_tree(model.stacked_dict(), progs.state_shardings.params)
+        logits, mcaches = progs.prefill(placed, batch, 48)
+        got = [logits]
+        for i, t in enumerate(toks):
+            logits, mcaches = progs.decode_step(placed, mcaches, t, 40 + i)
+            got.append(logits)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    leaf = mcaches[0]["b0:attn_local"]["k"]
+    assert isinstance(leaf, Sharded) and leaf.shards[0][0].is_cuda
+    for i, (g, r) in enumerate(zip(got, ref)):
+        err = float((g.double() - r.double()).abs().max()
+                    / r.double().abs().max())
+        assert err <= 1e-5, (spec, i, err)
+
+
+def test_mesh_train_step_launches_the_refresh_on_the_first_device(
+        cuda_device):
+    """One reduced gemma2-2b EigenPre step on a logical 2x1 mesh of the
+    card under FSDP: the refresh on the gathered grams launches kernels 1
+    and 2 (twice and once an eligible parameter), and the loss equals the
+    1x1 step's within 1e-6 relative."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, EigenPre
+    from repro_torch.sharding.placement import put_tree
+    from repro_torch.train import TrainState, make_train_step, put_batch
+    from repro_torch.train.steps import build_programs
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = reduced_config(get_config("gemma2-2b"))
+        opt = EigenPre(adamw=AdamW(lr=1e-3))
+        batch = put_batch(make_synthetic(cfg, ShapeConfig("t", 32, 4,
+                                                          "train"), seed=1)
+                          .global_batch_at(0), cuda_device)
+        model = LanguageModel(cfg, device=cuda_device).init(
+            torch.Generator(device=cuda_device).manual_seed(1))
+
+        def fresh():
+            params = {k: v.clone() for k, v in model.stacked_dict().items()}
+            return TrainState(params, opt.init(params),
+                              torch.zeros((), dtype=torch.int32))
+
+        progs = build_programs(model, parse_mesh("2x1", cuda_device),
+                               fsdp=True, optimizer=opt,
+                               compute_dtype=torch.float32)
+        state = put_tree(fresh(), progs.state_shardings)
+        _, ref = make_train_step(model, opt, torch.float32)(fresh(), batch)
+        before = (st_kernel.sturm_bisect.launches,
+                  pd_kernel.logabs_sum.launches)
+        state, metrics = progs.train_step(state, batch)
+        launched = (st_kernel.sturm_bisect.launches - before[0],
+                    pd_kernel.logabs_sum.launches - before[1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    eligible = sum(g.shape[0] > 1 for g in state.opt_state.gram.values())
+    assert eligible and launched == (2 * eligible, eligible)
+    assert abs(float(metrics["loss"]) / float(ref["loss"]) - 1) <= 1e-6

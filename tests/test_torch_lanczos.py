@@ -30,6 +30,27 @@ from repro_torch import Rank1Update, SolverEngine, SolverPlan  # noqa: E402
 from repro_torch.interop import plan_from_reference  # noqa: E402
 from repro_torch.linalg import lanczos  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """This file's tests on one torch and one OpenBLAS thread: with
+    parallel test workers, each would otherwise start a thread a core of
+    each, and the oversubscribed cores ran its heaviest test 17-35x
+    slower than alone."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:  # the limit on torch's threads still holds
+        limits = None
+    else:
+        limits = threadpool_limits(limits=1, user_api="blas")
+    yield
+    if limits is not None:
+        limits.restore_original_limits()
+    torch.set_num_threads(was)
+
+
 BACKENDS = ["reference", "torch", "cuda"]
 R_BACKENDS = {"reference": "reference", "torch": "jnp", "cuda": "pallas"}
 KINDS = ("goe", "spd", "clustered", "rank_deficient")

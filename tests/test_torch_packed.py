@@ -27,6 +27,27 @@ from repro.kernels import blocks as r_blocks  # noqa: E402
 from repro_torch import packed_plan_for, packed_topk_program  # noqa: E402
 from repro_torch.kernels import blocks  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """This file's tests on one torch and one OpenBLAS thread: with
+    parallel test workers, each would otherwise start a thread a core of
+    each, and the oversubscribed cores ran its heaviest test 17-35x
+    slower than alone."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:  # the limit on torch's threads still holds
+        limits = None
+    else:
+        limits = threadpool_limits(limits=1, user_api="blas")
+    yield
+    if limits is not None:
+        limits.restore_original_limits()
+    torch.set_num_threads(was)
+
+
 K = 4
 #: Eigenvalues: repro's Sturm tolerance (float64), its kernel tolerance in
 #: float32 (tests/test_kernels.py:185), as (rtol, atol).

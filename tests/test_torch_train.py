@@ -578,7 +578,7 @@ def test_launcher_refuses_without_a_card_and_on_a_mesh(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "gemma2-2b", "--reduced", "--steps", "1"])
     with pytest.raises(SystemExit):
-        train.main(["--arch", "gemma2-2b", "--reduced", "--mesh", "2x1",
+        train.main(["--arch", "gemma2-2b", "--reduced", "--mesh", "2x2x1",
                     "--device", "cpu"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LanguageModel(reduced_config(get_config("gemma2-2b")))
