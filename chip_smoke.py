@@ -196,16 +196,31 @@ Phases, each of which fails the run (non-zero exit) on error:
    first device launching kernels 1 and 2 (each launch held against its
    plain version); ``launch/serve.py --arch gemma2-2b --mesh 1x2`` and
    ``launch/train.py --reduced --mesh 2x1 --eigenpre`` on ``cuda:0``.
+18. (a) the example twins (``examples/torch_*.py``) on ``cuda:0``, each
+   with every launch count at 0 just before and read just after:
+   quickstart and distributed_eei must launch kernels 1 and 2,
+   spectral_monitor's fast updates kernel 3, and every launch is held
+   against its plain version (kernels 1 and 3 bitwise, kernel 2 within
+   its tolerance); serve_lm and train_lm (reduced) must exit 0.  (b) the
+   dry run against the card: one period of gemma2-2b at full width on a
+   1x1 mesh, a train cell of TRAIN_BATCH x TRAIN_SEQ and a decode cell of
+   LM_BATCH at LM_GEMMA_PROMPT, each counted on ``"meta"`` and again
+   while it runs on the card: FLOPs and bytes equal, the argument bytes
+   within DRY_ARGS_TOL of ``memory_allocated()``'s growth while placing;
+   printed without a gate: the measured peak beside the count's temp, and
+   the step's time beside ``bound_time``, ``dominant`` and
+   ``roofline_fraction`` on the H100 constants.  The phase's time is
+   printed.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
 run of the packed program), 7, 8, each stream of 11, each part of 12, each
 run of 13, phase 14, each step of 15, 16 and 17 and 16's and 17's
-serving and read just after, and a kernel that its path did not launch
-fails the run (phase 14 and 16's and 17's serving: a kernel that it
+serving, and each example of 18, and read just after, and a kernel that
+its path did not launch fails the run (phase 14 and 16's and 17's serving: a kernel that it
 launched; phases 15, 16 and 17: a step that is not a refresh and
 launched one).  Every record carries its wrapper's launches in each part
 of phases 15, 16 and 17 (``train_launches``, ``families_launches``,
-``mesh_launches``).  The records of kernels 1, 2 and 3 on the served
+``mesh_launches``) and in each example of 18 (``examples_launches``).  The records of kernels 1, 2 and 3 on the served
 paths carry the launches of phase 11's streams (``server_launches``) and of
 phase 12's in-process parts (``fleet_launches``; the worker processes'
 launches are not counted in this process); every record carries its
@@ -442,6 +457,22 @@ MESH_TOL, MESH_BF16_TOL, MESH_LOSS_TOL = 1e-4, 0.05, 1e-5
 MESH_LAUNCHER_STEPS = 2
 
 
+#: Phase 18 (a), the example twins on the card: (example, its arguments
+#: after ``--device cuda``, the kernels its path must launch).
+EXAMPLES = (
+    ("torch_quickstart", (), ("sturm_bisect", "logabs_sum")),
+    ("torch_distributed_eei", (), ("sturm_bisect", "logabs_sum")),
+    ("torch_spectral_monitor", (), ("sturm_segmented",)),
+    ("torch_serve_lm", ("--batch", "2", "--gen", "4"), ()),
+    ("torch_train_lm", ("--small", "--steps", "3", "--batch", "2", "--seq",
+                        "64"), ()),
+)
+#: Phase 18 (b): the dry run's argument bytes against the card's
+#: ``memory_allocated()`` growth while placing them (the allocator rounds
+#: each block up to 512 bytes).
+DRY_ARGS_TOL = 0.01
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -538,6 +569,7 @@ def main() -> int:
     train, train_record = _phase_train(torch, dev)
     families = _phase_families(torch, dev)
     mesh = _phase_mesh_lm(torch, dev, train_record)
+    examples = _phase_examples_dryrun(torch, dev)
     for r in records:
         kind = r["name"].split("[")[0]
         r["train_launches"] = {part: counts[kind]
@@ -546,6 +578,8 @@ def main() -> int:
                                   for part, counts in families.items()}
         r["mesh_launches"] = {part: counts[kind]
                               for part, counts in mesh.items()}
+        r["examples_launches"] = {name: counts[kind]
+                                  for name, counts in examples.items()}
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -5659,6 +5693,134 @@ def _mesh_train_ref(torch, dev):
     print(f"[mesh] gemma2-2b unsharded reference losses {losses}, step ms "
           f"{walls}")
     return dict(losses=losses, walls=walls)
+
+
+def _phase_examples_dryrun(torch, dev):
+    """18. The example twins on the card (a) and the dry run against the
+    card (b).  Returns each wrapper's launches by example."""
+    card = _gpu_name_and_limit()
+    print(f"[examples] phase 18 on {card}")
+    t_phase = time.perf_counter()
+    launches = _phase_examples(torch, dev, card)
+    torch.cuda.empty_cache()
+    _phase_dryrun(torch, dev, card)
+    print(f"[timing] phase 18 (examples and dry run) took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _phase_examples(torch, dev, card):
+    """18 (a). Each example twin of EXAMPLES run on the card with every
+    launch count at 0 just before and read just after (``_run_counted``:
+    no plain version may run); the kernels its path must launch launched,
+    and every launch held against its plain version afterwards."""
+    import tempfile
+
+    calls, plain, undo = _arm_server_capture()
+    streams, launches = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            for name, argv, must in EXAMPLES:
+                argv = ["--device", str(dev), *argv]
+                if name == "torch_train_lm":
+                    argv += ["--ckpt-dir", ckpt]
+                mod = _example(name)
+                t = time.perf_counter()
+                rc, counts, got, _ = _run_counted(
+                    torch, "examples", name, lambda: mod.main(argv), calls,
+                    plain, loggers=())
+                check(rc == 0, f"examples: {name} {argv} returned {rc}")
+                missing = [k for k in must if not counts[k]]
+                check(not missing, f"examples: {name} did not launch "
+                      f"{missing} on the card: {counts}")
+                print(f"[examples] {name}: exit 0 in "
+                      f"{time.perf_counter() - t:.1f} s, launches {counts} "
+                      f"({card})")
+                launches[name] = counts
+                if any(got.values()):
+                    streams[name] = dict(calls=got, counts=counts)
+    finally:
+        undo()
+    _hold_grouped(torch, "examples", streams, {key: [] for key in _PLAINS})
+    return launches
+
+
+def _phase_dryrun(torch, dev, card):
+    """18 (b). One period of gemma2-2b at full width on a 1x1 mesh, a train
+    and a decode cell, counted by the dry run on ``"meta"`` and again while
+    running on the card: FLOPs and bytes equal, argument bytes within
+    DRY_ARGS_TOL of the card's allocation growth while placing them; the
+    measured peak, time and the roofline's terms printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.roofline import Roofline, model_flops
+
+    full = get_config("gemma2-2b")
+    cfg = dryrun_lib._scaled_pattern(full, [1] * len(full.pattern))
+    meta_mesh = make_local_mesh(1, 1, devices=["meta"])
+    card_mesh = make_local_mesh(1, 1, devices=[dev])
+    for shape in (ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                  ShapeConfig("decode", LM_GEMMA_PROMPT, LM_BATCH,
+                              "decode")):
+        tag = (f"gemma2-2b {'+'.join(full.pattern[0][1])} {shape.kind} "
+               f"{shape.global_batch}x{shape.seq_len}")
+        meta = dryrun_lib.compile_and_extract(
+            dryrun_lib.lower_cell(cfg, shape, meta_mesh))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        cell = dryrun_lib.lower_cell(
+            cfg, shape, card_mesh, fsdp=meta["fsdp"],
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - before
+        args = meta["memory"]["argument_size_in_bytes"]
+        check(abs(placed - args) <= DRY_ARGS_TOL * args,
+              f"dry run {tag}: {args} argument bytes counted, {placed} "
+              f"allocated on the card")
+        cell.run()  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cell.run()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counted = dryrun_lib.compile_and_extract(cell)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        for key in ("flops", "bytes accessed"):
+            check(counted["cost"][key] == meta["cost"][key],
+                  f"dry run {tag}: {key} {counted['cost'][key]} on the card, "
+                  f"{meta['cost'][key]} on meta")
+        rl = Roofline(flops=meta["cost"]["flops"],
+                      bytes_accessed=meta["cost"]["bytes accessed"],
+                      collective_bytes=meta["collectives"]["total"], chips=1,
+                      model_flops=model_flops(cfg, shape))
+        print(f"[dryrun] {tag}: flops {meta['cost']['flops']:.6e} and bytes "
+              f"{meta['cost']['bytes accessed']:.6e} equal on meta and the "
+              f"card; arguments {args} B counted, {placed} B allocated; "
+              f"temp {meta['memory']['temp_size_in_bytes']} B counted, peak "
+              f"{peak} B measured; step {step_s * 1e3:.3f} ms measured, "
+              f"bound_time {rl.bound_time * 1e3:.3f} ms ({rl.dominant}), "
+              f"{step_s / rl.bound_time:.2f}x the bound, roofline_fraction "
+              f"{rl.roofline_fraction:.4f}; meta count {meta['run_s']:.2f} s "
+              f"({card})")
+        del cell
+        torch.cuda.empty_cache()
 
 
 #: Kernel kind -> (CUDA source, the TPU kernel's pallas_call it replaces).

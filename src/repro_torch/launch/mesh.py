@@ -10,8 +10,11 @@ the sharded stages run each shard on its own device from one process
 data axis on one card (``cuda:0`` twice) or on the CPU (``cpu`` twice),
 the counterpart of ``--xla_force_host_platform_device_count``.
 
-``repro``'s ``make_production_mesh`` builds TPU pod meshes for the dry-run
-and is not ported with it.
+A mesh may also carry ``repro``'s ``pod`` axis, ``(pod, data, model)``:
+pure data parallelism over pods, whose data rows are the ``pod x data``
+positions flattened pod-major.  :func:`make_production_mesh` gives
+``repro``'s production meshes on the ``"meta"`` device, for the dry run
+(``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -21,24 +24,26 @@ import logging
 
 import torch
 
-#: ``repro``'s three-axis ``--mesh PxDxM`` (a ``pod`` axis over TPU pods)
-#: is not ported: it comes with ``make_production_mesh`` and the dry run.
-POD_MESH_REFUSAL = ("--mesh {}: a PxDxM mesh (repro's pod axis) waits for "
-                    "the dry-run slice, which ports make_production_mesh; "
-                    "pass DxM")
+#: The axis names a mesh may have: ``repro``'s two- and three-axis meshes.
+AXES_2D = ("data", "model")
+AXES_3D = ("pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``(data, model)`` grid of devices with named axes.
+    """A ``(data, model)`` or ``(pod, data, model)`` grid of devices with
+    named axes.
 
     Frozen and hashable, so that a :class:`~repro_torch.engine.plan.
     SolverPlan` holding one stays a cache key.  ``devices`` is a tuple of
-    rows, one per index along the first axis.
+    rows, one per data row: with a ``pod`` axis of ``P`` and a ``data``
+    axis of ``D``, ``P * D`` rows, row ``p * D + d`` at pod ``p``, data
+    index ``d``.  ``pods`` is ``P`` (1 without a pod axis).
     """
 
     devices: tuple
-    axis_names: tuple = ("data", "model")
+    axis_names: tuple = AXES_2D
+    pods: int = 1
 
     def __post_init__(self):
         grid = tuple(tuple(torch.device(d) for d in row)
@@ -47,17 +52,35 @@ class Mesh:
             raise ValueError(f"mesh devices must be a non-empty rectangular "
                              f"grid, got {self.devices!r}")
         names = tuple(self.axis_names)
-        if len(names) != 2 or len(set(names)) != 2:
-            raise ValueError(f"a mesh has two distinct axis names, got "
-                             f"{names!r}")
+        if names not in (AXES_2D, AXES_3D):
+            raise ValueError(f"a mesh's axes are {AXES_2D} or {AXES_3D}, "
+                             f"got {names!r}")
+        pods = self.pods if names == AXES_3D else 1
+        if pods < 1 or len(grid) % pods:
+            raise ValueError(f"{len(grid)} data rows do not split into "
+                             f"{self.pods} pods")
         object.__setattr__(self, "devices", grid)
         object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "pods", pods)
 
     @property
     def shape(self) -> dict:
         """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
-        return {self.axis_names[0]: len(self.devices),
-                self.axis_names[1]: len(self.devices[0])}
+        sizes = {"data": len(self.devices) // self.pods,
+                 "model": len(self.devices[0])}
+        if self.axis_names == AXES_3D:
+            sizes = {"pod": self.pods, **sizes}
+        return sizes
+
+    def position(self, r: int, m: int) -> dict:
+        """Axis name -> index of data row ``r``, model column ``m``."""
+        data = len(self.devices) // self.pods
+        return {"pod": r // data, "data": r % data, "model": m}
+
+    @property
+    def spec(self) -> str:
+        """The mesh's ``--mesh`` spec: ``"DxM"`` or ``"PxDxM"``."""
+        return "x".join(str(n) for n in self.shape.values())
 
     @property
     def size(self) -> int:
@@ -71,60 +94,93 @@ class Mesh:
         return self.devices[0][0]
 
     def axis_devices(self, axis: str) -> tuple:
-        """The devices along ``axis``, at index 0 of the other axis: the
+        """The devices along ``axis``, at index 0 of the other axes: the
         device that runs each shard of a stage split over ``axis``."""
-        if axis == self.axis_names[0]:
-            return tuple(row[0] for row in self.devices)
-        if axis == self.axis_names[1]:
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} not in mesh axes "
+                             f"{self.axis_names}")
+        if axis == "model":
             return self.devices[0]
-        raise ValueError(f"axis {axis!r} not in mesh axes {self.axis_names}")
+        data = len(self.devices) // self.pods
+        rows = range(0, len(self.devices), data) if axis == "pod" else range(
+            data)
+        return tuple(self.devices[r][0] for r in rows)
 
 
-def make_local_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
-    """A ``(data, model)`` mesh over the first ``data * model`` of
-    ``devices`` (default: the cards, ``cuda:0``, ``cuda:1``, ...), row
-    major.  Refuses when there are fewer; an explicit list may repeat a
-    device."""
-    if data < 1 or model < 1:
-        raise ValueError(f"mesh axes must be >= 1, got {data}x{model}")
-    need = data * model
+def make_local_mesh(data: int = 1, model: int = 1, devices=None,
+                    pod: int | None = None) -> Mesh:
+    """A ``(data, model)`` mesh, or with ``pod`` a ``(pod, data, model)``
+    one, over the first ``pod * data * model`` of ``devices`` (default: the
+    cards, ``cuda:0``, ``cuda:1``, ...), row major.  Refuses when there are
+    fewer; an explicit list may repeat a device."""
+    pods = 1 if pod is None else pod
+    spec = "x".join(str(a) for a in ((data, model) if pod is None
+                                      else (pod, data, model)))
+    if data < 1 or model < 1 or pods < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {spec}")
+    need = pods * data * model
     if devices is None:
         found = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if found < need:
             raise RuntimeError(
-                f"a {data}x{model} mesh needs {need} CUDA devices, found "
+                f"a {spec} mesh needs {need} CUDA devices, found "
                 f"{found}; pass devices= (a device may repeat)")
         devices = [torch.device("cuda", i) for i in range(need)]
     devices = list(devices)
     if len(devices) < need:
-        raise ValueError(f"a {data}x{model} mesh needs {need} devices, got "
+        raise ValueError(f"a {spec} mesh needs {need} devices, got "
                          f"{len(devices)}")
     return Mesh(tuple(tuple(devices[r * model:(r + 1) * model])
-                      for r in range(data)))
+                      for r in range(pods * data)),
+                AXES_2D if pod is None else AXES_3D, pods)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> Mesh:
+    """``repro``'s production meshes: ``(data=16, model=16)``, 256
+    positions, or with ``multi_pod`` ``(pod=2, data=16, model=16)``, 512.
+    Every position is ``device`` (default ``"meta"``: the dry run's,
+    which allocates nothing)."""
+    pod = 2 if multi_pod else None
+    return make_local_mesh(16, 16, devices=[device] * ((pod or 1) * 256),
+                           pod=pod)
 
 
 def chips(mesh: Mesh) -> int:
     return mesh.size
 
 
-def mesh_axes(spec: str) -> tuple:
-    """``(data, model)`` of a mesh spec ``"DxM"``."""
+def mesh_spec(spec: str) -> tuple:
+    """The axis sizes of a mesh spec, ``"DxM"`` or ``"PxDxM"``."""
     try:
-        data, model = (int(p) for p in spec.split("x"))
+        axes = tuple(int(p) for p in spec.split("x"))
     except ValueError:
-        raise ValueError(f"bad mesh spec {spec!r}: expected DxM") from None
-    if data < 1 or model < 1:
+        axes = ()
+    if len(axes) not in (2, 3):
+        raise ValueError(f"bad mesh spec {spec!r}: expected DxM or PxDxM")
+    if min(axes) < 1:
         raise ValueError(f"bad mesh spec {spec!r}: axes must be >= 1")
-    return data, model
+    return axes
+
+
+def mesh_axes(spec: str) -> tuple:
+    """``(data, model)`` of a mesh spec ``"DxM"`` (the EEI server's meshes,
+    which have no pod axis)."""
+    axes = mesh_spec(spec)
+    if len(axes) != 2:
+        raise ValueError(f"bad mesh spec {spec!r}: expected DxM")
+    return axes
 
 
 def parse_mesh(spec: str, device=None) -> Mesh:
-    """The mesh of a launcher's ``--mesh DxM``: the first ``D*M`` cards, or
-    with ``device`` that device repeated ``D*M`` times (``--device cpu``
-    repeats the CPU)."""
-    data, model = mesh_axes(spec)
-    devices = None if device is None else [device] * (data * model)
-    return make_local_mesh(data, model, devices=devices)
+    """The mesh of a launcher's ``--mesh DxM`` or ``--mesh PxDxM`` (as
+    ``repro``'s ``launch/train.py``): the first ``P*D*M`` cards, or with
+    ``device`` that device repeated (``--device cpu`` repeats the CPU)."""
+    *pod, data, model = mesh_spec(spec)
+    pod = pod[0] if pod else None
+    need = (pod or 1) * data * model
+    devices = None if device is None else [device] * need
+    return make_local_mesh(data, model, devices=devices, pod=pod)
 
 
 def log_mesh_bytes(log: logging.Logger, mesh: Mesh, tree, what: str):
@@ -133,7 +189,7 @@ def log_mesh_bytes(log: logging.Logger, mesh: Mesh, tree, what: str):
     from repro_torch.sharding.placement import device_bytes
 
     grid = device_bytes(tree, mesh)
-    log.info("mesh %s on %s: %s bytes per device %s", dict(mesh.shape),
+    log.info("mesh %s on %s: %s bytes per device %s", mesh.shape,
              sorted({str(d) for row in mesh.devices for d in row}), what,
              grid)
     return grid

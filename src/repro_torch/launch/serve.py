@@ -36,7 +36,8 @@ The language-model path, the twin of ``repro``'s ``--arch`` mode:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         [--reduced] [--batch 4] [--prompt-len 32] [--gen 16] \
-        [--dtype float32|bfloat16] [--seed 0] [--device cpu] [--mesh DxM]
+        [--dtype float32|bfloat16] [--seed 0] [--device cpu] \
+        [--mesh DxM|PxDxM]
 
 builds the config's ``LanguageModel`` with weights drawn from ``--seed``,
 prefills ``--batch`` seeded prompts of ``--prompt-len`` tokens (whisper's
@@ -48,8 +49,8 @@ registry runs.  With ``--mesh DxM`` (``--device`` repeated, as for
 ``--eei``) the parameters are placed on the mesh by ``repro``'s specs and
 served through ``train.steps.build_programs`` (prefill and ``serve_step``
 over sharded caches); the mesh and the bytes each of its devices holds
-are logged.  ``--mesh PxDxM`` (``repro``'s pod axis) is refused: it waits
-for the dry-run slice with ``make_production_mesh``.
+are logged.  ``--mesh PxDxM`` adds ``repro``'s ``pod`` axis: data
+parallelism over ``P x D`` rows.  The EEI server takes ``DxM`` only.
 """
 
 from __future__ import annotations
@@ -146,11 +147,10 @@ def _serve_lm_mesh(args, cfg, mesh, compute_dtype, smax):
         card = (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
                 else "")
         programs = build_programs(model, mesh, compute_dtype=compute_dtype)
-        log.info("lm serve: %s, %d parameters on a %dx%d mesh of %s%s, %s, "
+        log.info("lm serve: %s, %d parameters on a %s mesh of %s%s, %s, "
                  "fsdp=%s, batch=%d prompt=%d gen=%d", cfg.name,
-                 model.n_params(), mesh.shape["data"], mesh.shape["model"],
-                 dev, card, args.dtype, programs.fsdp, args.batch,
-                 args.prompt_len, args.gen)
+                 model.n_params(), mesh.spec, dev, card, args.dtype,
+                 programs.fsdp, args.batch, args.prompt_len, args.gen)
         model.init(torch.Generator(device=dev).manual_seed(args.seed))
         params = cast_tree(put_tree(model.stacked_dict(),
                                     programs.state_shardings.params),
@@ -467,7 +467,8 @@ def main(argv=None):
                     "--replicas (default: the card; 'cpu' runs the "
                     "kernels' plain versions, or the LM on the CPU)")
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM device mesh: the first D*M cards, or with "
+                    help="DxM device mesh (--arch also PxDxM, with repro's "
+                    "pod axis): the first D*M (P*D*M) cards, or with "
                     "--device that device repeated; --eei: buckets of at "
                     "least D requests take the sharded backend; --arch: "
                     "the model's parameters and caches are sharded on it")
@@ -475,15 +476,16 @@ def main(argv=None):
                     help="serve through the sharded backend on the --mesh "
                     "data axis (stack buckets round up to it; needs D >= 2)")
     args = ap.parse_args(argv)
-    from repro_torch.launch.mesh import POD_MESH_REFUSAL, mesh_axes
+    from repro_torch.launch.mesh import mesh_spec
 
-    if args.mesh.count("x") == 2:
-        ap.error(POD_MESH_REFUSAL.format(args.mesh))
     try:
-        data, model = mesh_axes(args.mesh)
+        axes = mesh_spec(args.mesh)
     except ValueError as exc:
         ap.error(f"--mesh: {exc}")
-    if args.sharded and data < 2:
+    if len(axes) == 3 and (args.eei or args.sharded):
+        ap.error(f"--mesh {args.mesh}: a pod axis shards the language model "
+                 f"(--arch); the EEI server takes DxM")
+    if args.sharded and axes[0] < 2:
         ap.error("--sharded needs a data axis of at least 2 devices: pass "
                  "--mesh DxM with D >= 2 (with --device, that device "
                  "repeated)")

@@ -4,7 +4,7 @@
         [--shape train_4k] [--steps 100] [--reduced] [--eigenpre] \
         [--batch 4] [--seq 64] [--microbatch 2] [--dtype float32|bfloat16] \
         [--ckpt-dir artifacts/ckpt] [--ckpt-every 50] [--resume] \
-        [--seed 0] [--log-every 10] [--device cpu] [--mesh DxM]
+        [--seed 0] [--log-every 10] [--device cpu] [--mesh DxM|PxDxM]
 
 Wires together: config registry -> model (weights drawn from ``--seed`` on
 the device) -> ``TrainState`` in ``repro``'s stacked layout -> synthetic
@@ -21,8 +21,8 @@ unless ``--device`` names another device; with no card and no
 the state is placed by ``repro``'s specs (FSDP when
 ``fsdp_recommended`` says so for the card's memory) and stepped by
 ``train.steps.build_programs``; the mesh and the bytes each of its
-devices holds are logged.  ``--mesh PxDxM`` is refused (it waits for the
-dry-run slice).
+devices holds are logged.  ``--mesh PxDxM`` adds ``repro``'s ``pod``
+axis: data parallelism over ``P x D`` rows.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import math
 import time
 
 import torch
@@ -52,8 +53,8 @@ def main(argv=None):
     ap.add_argument("--shape", choices=sorted(SHAPES), default="train_4k")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM: the first D*M cards, or with --device that "
-                    "device repeated")
+                    help="DxM or PxDxM: the first D*M (P*D*M) cards, or "
+                    "with --device that device repeated")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size config")
     ap.add_argument("--batch", type=int, default=0,
@@ -72,23 +73,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the card)")
     args = ap.parse_args(argv)
-    from repro_torch.launch.mesh import (
-        POD_MESH_REFUSAL,
-        log_mesh_bytes,
-        mesh_axes,
-        parse_mesh,
-    )
+    from repro_torch.launch.mesh import log_mesh_bytes, mesh_spec, parse_mesh
     from repro_torch.models import LanguageModel
     from repro_torch.sharding.placement import put_tree
 
-    if args.mesh.count("x") == 2:
-        ap.error(POD_MESH_REFUSAL.format(args.mesh))
     try:
-        data, model_axis = mesh_axes(args.mesh)
+        positions = math.prod(mesh_spec(args.mesh))
     except ValueError as exc:
         ap.error(f"--mesh: {exc}")
-    mesh = (parse_mesh(args.mesh, args.device) if data * model_axis > 1
-            else None)
+    mesh = parse_mesh(args.mesh, args.device) if positions > 1 else None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -134,8 +127,7 @@ def main(argv=None):
         del params
         model.release()
         train_step = programs.train_step
-        log.info("%dx%d mesh, fsdp=%s", mesh.shape["data"],
-                 mesh.shape["model"], programs.fsdp)
+        log.info("%s mesh, fsdp=%s", mesh.spec, programs.fsdp)
         log_mesh_bytes(log, mesh, state, "train state")
 
     manager = CheckpointManager(f"{args.ckpt_dir}/{cfg.name}", keep=3)

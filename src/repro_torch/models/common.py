@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.roofline.collectives import nbytes, record
+
 
 def matmul(a: torch.Tensor, b: torch.Tensor, f32: bool = False) -> torch.Tensor:
     """``a @ b`` in the two operands' promoted dtype, as ``jnp.einsum``
@@ -48,7 +50,10 @@ def partial_einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 def sum_partials(parts, device, dtype) -> torch.Tensor:
     """The devices' partial sums of a product (each in at least float32)
     added on ``device`` in device order and rounded once to ``dtype``, as
-    the unsharded product accumulates before its one rounding."""
+    the unsharded product accumulates before its one rounding (an
+    all-reduce, reported to ``roofline.collectives``)."""
+    if len(parts) > 1:
+        record("all-reduce", sum(nbytes(t) for t in parts))
     out = None
     for t in parts:
         t = t.to(device)

@@ -41,6 +41,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, common
 from repro_torch.models.attention import TensorSpec
+from repro_torch.roofline.collectives import nbytes, record
 from repro_torch.sharding.placement import Sharded, Split
 from repro_torch.models.params import (
     ParamDecl,
@@ -423,6 +424,8 @@ def _embed(cfg: ModelConfig, table: Split, tokens) -> torch.Tensor:
             e = w[torch.clamp(t - lo, 0, hi - lo - 1)]
             e = torch.where(hit[..., None], e,
                             torch.zeros((), dtype=e.dtype, device=e.device))
+            if len(table.parts) > 1:
+                record("all-reduce", nbytes(e))
             x = e.to(tokens.device) if x is None else x + e.to(tokens.device)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
@@ -439,8 +442,10 @@ def _head(cfg: ModelConfig, x, norm, w: Split) -> torch.Tensor:
     if w.dim is None:
         logits = common.matmul(x, ws[0]).float()
     else:
-        logits = torch.cat([common.matmul(x.to(p.device), p).to(x.device)
-                            for p in ws], dim=-1).float()
+        parts = [common.matmul(x.to(p.device), p) for p in ws]
+        if len(parts) > 1:
+            record("all-gather", sum(nbytes(p) for p in parts))
+        logits = torch.cat([p.to(x.device) for p in parts], dim=-1).float()
     if cfg.final_softcap is not None:
         logits = common.softcap(logits, cfg.final_softcap)
     return logits

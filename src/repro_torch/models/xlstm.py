@@ -206,7 +206,14 @@ def _run_steps(step, steps: int, device) -> None:
     """``step()`` ``steps`` times.  On the card, for long loops, the first
     call runs eagerly (the warm-up capture needs) and the rest replay one
     CUDA graph of it: ``step`` reads and advances a device counter and
-    works on static buffers, so every replay is the next step."""
+    works on static buffers, so every replay is the next step.  On
+    ``"meta"`` tensors (the dry run) there are no values, so one step gives
+    every shape; the dry run adds the other steps' FLOPs analytically
+    (``roofline.slstm_extra_flops``), as it must for the card's replays,
+    which dispatch no operator it could count."""
+    if device.type == "meta":
+        step()
+        return
     if device.type != "cuda" or steps < GRAPH_MIN_STEPS:
         for _ in range(steps):
             step()

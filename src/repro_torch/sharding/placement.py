@@ -2,13 +2,16 @@
 ``jax.device_put`` with a ``NamedSharding``).
 
 A :class:`Sharded` tensor keeps one shard per mesh position ``(r, m)``
-(data row ``r``, model column ``m``) on that position's device.  Its spec
-(``rules.P``) splits each dimension mapped to ``data`` over the data axis
-and each mapped to ``model`` over the model axis; an unmapped dimension is
-whole in every shard, so the shards of a replicated tensor are copies.  The
-bytes each position holds are exactly what ``repro``'s spec gives on that
-mesh (:func:`device_bytes`).  On a logical mesh that repeats one device,
-every position's shard is its own tensor all the same.
+(data row ``r``, model column ``m``; on a mesh with a ``pod`` axis the rows
+are the ``pod x data`` positions, pod-major) on that position's device.
+Its spec (``rules.P``) splits each dimension mapped to ``data`` over the
+data axis, each mapped to ``model`` over the model axis, and one mapped to
+``("pod", "data")`` over both, its index ``pod * D + data``; an unmapped
+dimension is whole in every shard, so the shards of a replicated tensor
+are copies.  The bytes each position holds are exactly what ``repro``'s
+spec gives on that mesh (:func:`device_bytes`).  On a logical mesh that
+repeats one device, every position's shard is its own tensor all the
+same.
 
 The mesh programs (``train.steps.build_programs``) read a tensor a row at
 a time: :meth:`Sharded.split` gives row ``r``'s model-axis parts as a
@@ -20,6 +23,9 @@ shards are summed over the positions that hold the same slice
 A :class:`Sharding` with spec None places a tensor whole on the mesh's
 first device (``EigenPre``'s grams); a 0-d tensor stays where it is (the
 port's step counters are host scalars).
+
+The joins and sums between positions report their bytes to
+``roofline.collectives`` (a no-op unless a count runs).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.roofline.collectives import nbytes, record
 from repro_torch.sharding.rules import P
 
 
@@ -59,6 +66,7 @@ class Split(NamedTuple):
         """The whole tensor on the first part's device."""
         if self.dim is None or len(self.parts) == 1:
             return self.parts[0]
+        record("all-gather", sum(nbytes(p) for p in self.parts))
         dev = self.parts[0].device
         return torch.cat([p.to(dev) for p in self.parts], dim=self.dim)
 
@@ -136,21 +144,27 @@ class Sharded:
 
     def split(self, r: int, gather_data: bool = True) -> Split:
         """Row ``r``'s parts.  With ``gather_data``, a dimension split over
-        ``data`` is gathered from every row onto each part's device (FSDP);
+        ``data`` (or ``pod`` and ``data``) is gathered from the rows that
+        hold its slices onto each part's device (FSDP's all-gather);
         without, each part is the row's own shard (a cache's batch rows)."""
-        ddim = self._dim_of("data")
+        ddim = next((d for d in (self._dim_of("data"), self._dim_of("pod"))
+                     if d is not None), None)
         mdim = self._dim_of("model")
         if ddim is not None and ddim == mdim:
             raise ValueError(f"a dimension split over both axes: {self.spec}")
-        devices = self.mesh.devices[r]
+        if ddim is None or not gather_data:
+            return Split(tuple(self.shards[r]), mdim)
+        entry = self.spec[ddim]
+        holders = {}
+        for rr in range(len(self.shards)):
+            holders.setdefault(_index(entry, self.mesh, rr, 0), rr)
+        rows = [holders[i] for i in range(len(holders))]
         parts = []
-        for m, dev in enumerate(devices):
-            if ddim is None or not gather_data:
-                parts.append(self.shards[r][m])
-            else:
-                parts.append(torch.cat(
-                    [self.shards[rr][m].to(dev) for rr in range(len(self.shards))],
-                    dim=ddim))
+        for m, dev in enumerate(self.mesh.devices[r]):
+            if len(rows) > 1:
+                record("all-gather", nbytes(self.shards[r][m]))
+            parts.append(torch.cat([self.shards[rr][m].to(dev) for rr in rows],
+                                   dim=ddim))
         return Split(tuple(parts), mdim)
 
     def slice_key(self, r: int, m: int) -> tuple:
@@ -162,6 +176,9 @@ class Sharded:
         """The whole tensor on ``device`` (default: the mesh's first)."""
         device = torch.device(device) if device is not None else (
             self.mesh.first_device)
+        pieces = _pieces(self.spec, self.mesh)
+        if pieces > 1:
+            record("all-gather", nbytes(self.shards[0][0]) * pieces)
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
         for r, row in enumerate(self.shards):
             for m, t in enumerate(row):
@@ -178,10 +195,18 @@ def _axis_size(mesh, entry) -> int:
     return size
 
 
+def _pieces(spec, mesh) -> int:
+    """Into how many distinct slices ``spec`` splits a tensor."""
+    out = 1
+    for e in spec:
+        out *= _axis_size(mesh, e)
+    return out
+
+
 def _index(entry, mesh, r: int, m: int) -> int:
     """The shard index along a dimension of ``entry`` at position
     ``(r, m)``."""
-    pos = {mesh.axis_names[0]: r, mesh.axis_names[1]: m}
+    pos = mesh.position(r, m)
     shape = dict(mesh.shape)
     idx = 0
     for a in _names(entry):
@@ -307,9 +332,24 @@ def reduce_grads(leaves: Sharded, scale: float = 1.0) -> Sharded:
     """The all-reduce of a sharded leaf's gradients: each position gets
     the sum, in row-major order, of the ``.grad``s of every position that
     holds its slice (a missing grad counts as zero), times ``scale``.  A
-    position on the device of the sum shares its tensor."""
+    position on the device of the sum shares its tensor.
+
+    Counted as collectives: an all-reduce over each group of positions
+    that hold one slice, and, for a leaf split over the data axes (FSDP),
+    the reduce-scatter whose backward of ``Sharded.split``'s gather
+    brought each position its slice's gradient: each position's operand
+    the gradient unscattered over those axes."""
     out = [[None] * len(row) for row in leaves.shards]
+    shard = nbytes(leaves.shards[0][0])
+    data_split = 1
+    for e in leaves.spec:
+        if e is not None and set(_names(e)) & {"pod", "data"}:
+            data_split *= _axis_size(leaves.mesh, e)
+    if data_split > 1:
+        record("reduce-scatter", leaves.mesh.size * shard * data_split)
     for group in groups(leaves):
+        if len(group) > 1:
+            record("all-reduce", len(group) * shard)
         total = None
         for r, m in group:
             g = leaves.shards[r][m].grad

@@ -148,13 +148,18 @@ def fsdp_recommended(n_params: int, mesh, hbm_per_chip: float = 16e9) -> bool:
 
 def chip_memory(mesh) -> float:
     """The per-chip budget :func:`fsdp_recommended` compares against on
-    ``mesh``: its first device's memory on a card, else ``repro``'s
-    default."""
+    ``mesh``: its first device's memory on a card, an H100's on a
+    ``"meta"`` mesh (the dry run's, ``roofline.constants.HBM_PER_CHIP``),
+    else ``repro``'s default (the CPU tests' meshes)."""
     import torch
+
+    from repro_torch.roofline.constants import HBM_PER_CHIP
 
     device = mesh.first_device
     if device.type == "cuda":
         return float(torch.cuda.get_device_properties(device).total_memory)
+    if device.type == "meta":
+        return HBM_PER_CHIP
     return 16e9
 
 

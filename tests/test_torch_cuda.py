@@ -1005,3 +1005,29 @@ def test_mesh_train_step_launches_the_refresh_on_the_first_device(
     eligible = sum(g.shape[0] > 1 for g in state.opt_state.gram.values())
     assert eligible and launched == (2 * eligible, eligible)
     assert abs(float(metrics["loss"]) / float(ref["loss"]) - 1) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dry_run_count_on_meta_equals_its_count_on_the_card(cuda_device,
+                                                            kind):
+    """The dry run's count reads shapes only: reduced gemma2-2b's cell on
+    a 1x2 meta mesh counts the FLOPs, bytes, collectives and argument
+    bytes that the same program counts while it runs on a logical 1x2
+    mesh of the card."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import parse_mesh
+
+    cfg = reduced_config(get_config("gemma2-2b"))
+    shape = ShapeConfig(kind, 16, 2, kind)
+    meta = dryrun_lib.compile_and_extract(
+        dryrun_lib.lower_cell(cfg, shape, parse_mesh("1x2", "meta")))
+    card = dryrun_lib.compile_and_extract(dryrun_lib.lower_cell(
+        cfg, shape, parse_mesh("1x2", cuda_device), fsdp=meta["fsdp"],
+        generator=torch.Generator(device=cuda_device).manual_seed(0)))
+    torch.cuda.synchronize()
+    assert card["cost"] == meta["cost"]
+    assert card["collectives"] == meta["collectives"]
+    assert (card["memory"]["argument_size_in_bytes"]
+            == meta["memory"]["argument_size_in_bytes"])

@@ -198,7 +198,7 @@ def test_launcher_lm_needs_a_card_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("args, said", [
-    (["--mesh", "2x2x1"], "waits for the dry-run slice"),
+    (["--mesh", "2x1x1x1"], "expected DxM or PxDxM"),
     (["--mesh", "2xq"], "bad mesh spec"),
     (["--arch", "gpt-5"], "unknown arch")])
 def test_launcher_refuses_what_the_lm_path_does_not_port(args, said, capsys):

@@ -585,8 +585,7 @@ def test_serve_cli_packed_stream_smoke():
 @pytest.mark.parametrize("args, said", [
     (["--eei", "--sharded"], "needs a data axis of at least 2"),
     (["--eei", "--mesh", "2x"], "bad mesh spec"),
-    (["--arch", "deepseek-v3-671b", "--reduced", "--mesh", "2x2x1"],
-     "waits for the dry-run slice"),
+    (["--eei", "--mesh", "2x1x1"], "the EEI server takes DxM"),
     ([], "--eei is required")])
 def test_serve_cli_refuses_what_is_not_ported(args, said, capsys):
     from repro_torch.launch import serve as serve_cli

@@ -497,13 +497,22 @@ def test_train_launcher_on_a_2x1_cpu_mesh_with_eigenpre(tmp_path,
     assert "step     1 loss" in caplog.text and "bytes per device" in caplog.text
 
 
-@pytest.mark.parametrize("cli", [serve_cli, train_cli])
-def test_launchers_refuse_a_pod_mesh_with_its_reason(cli, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
-                  "--mesh", "2x2x1"])
-    assert exc.value.code == 2
-    assert "waits for the dry-run slice" in capsys.readouterr().err
+@pytest.mark.parametrize("cli", [serve_cli, train_cli],
+                         ids=["serve_cli", "train_cli"])
+def test_launchers_take_a_pod_mesh(cli, tmp_path, caplog):
+    """``--mesh 2x1x1`` (repro's pod axis) on the CPU: the launcher runs
+    on the three-axis mesh and logs the bytes each position holds."""
+    argv = ["--arch", "gemma2-2b", "--reduced", "--device", "cpu", "--mesh",
+            "2x1x1"]
+    if cli is serve_cli:
+        argv += ["--batch", "2", "--prompt-len", "8", "--gen", "2"]
+    else:
+        argv += ["--steps", "1", "--batch", "2", "--seq", "16",
+                 "--ckpt-dir", str(tmp_path)]
+    with caplog.at_level("INFO", logger="repro_torch"):
+        cli.main(argv)
+    assert "{'pod': 2, 'data': 1, 'model': 1}" in caplog.text
+    assert "bytes per device [[" in caplog.text
 
 
 if __name__ == "__main__":
