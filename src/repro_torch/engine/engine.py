@@ -33,6 +33,7 @@ from repro_torch.engine import registry
 from repro_torch.engine.plan import SolverPlan
 from repro_torch.engine.verify import DEFAULT_TOL
 from repro_torch.linalg import interlace
+from repro_torch.tracing import span
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -559,8 +560,9 @@ class Program:
 
     def __call__(self, *args):
         state = self.initial_state(*args)
-        for _, fn in self.stages:
-            state.update(fn(state))
+        for sig, fn in self.stages:
+            with span(f"stage/{sig.role}/{sig.name}"):
+                state.update(fn(state))
         return self.result(state)
 
 

@@ -39,6 +39,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import identity
+from repro_torch.tracing import count, span
 
 #: Krylov band sizing for a k-window: ``m = min(n, max(FACTOR * k, MIN))``
 #: (``repro``'s constants; ``SolverPlan.krylov_m`` overrides).
@@ -84,9 +85,24 @@ class LanczosResult(NamedTuple):
     resid: torch.Tensor  # (..., k) last windowed Ritz residual bound
 
 
+def _from_host(x: torch.Tensor, dtype, device) -> torch.Tensor:
+    """``x``, made on the host, as ``dtype`` on ``device``: on the card a
+    blocking copy, so the host waits for the device."""
+    with span("lanczos/sync"):
+        count("host_sync")
+        return x.to(dtype=dtype, device=device)
+
+
+def _any(x: torch.Tensor) -> bool:
+    """``bool(x.any())``: the host waits for the device's answer."""
+    with span("lanczos/sync"):
+        count("host_sync")
+        return bool(x.any())
+
+
 def _floor(dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.tensor(torch.finfo(dtype).tiny, dtype=dtype,
-                        device=device) ** 0.5
+    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype)
+    return _from_host(tiny, dtype, device) ** 0.5
 
 
 def _band_bounds(d: torch.Tensor, e_band: torch.Tensor, active: torch.Tensor):
@@ -128,8 +144,8 @@ def _mask_band(d: torch.Tensor, e: torch.Tensor, j, m: int, largest: bool):
 def _gaussian(n: int, seed: int, dtype, device) -> torch.Tensor:
     """A seeded standard normal ``(n,)``, drawn on the CPU in float64."""
     gen = torch.Generator().manual_seed(int(seed))
-    return torch.randn(n, generator=gen, dtype=torch.float64).to(
-        dtype=dtype, device=device)
+    return _from_host(torch.randn(n, generator=gen, dtype=torch.float64),
+                      dtype, device)
 
 
 def _restart_seed(seed: int, j: int) -> int:
@@ -222,16 +238,30 @@ def lanczos_iterate(
     rows = torch.arange(b_n, device=device)
 
     def retire(keep, j1):
-        """Write the matrices leaving the working set (``~keep``) to the
-        outputs; return the working set without them."""
+        """Write the matrices leaving the working set (``~keep``; all of
+        them where ``keep`` is None) to the outputs; return the working set
+        without them.  One wait for the device, none when all leave."""
         nonlocal q, d, e, resid, rows, operands
-        gone = rows[~keep]
-        out_q[gone], out_d[gone], out_e[gone] = q[~keep], d[~keep], e[~keep]
-        out_resid[gone] = resid[~keep]
-        out_steps[gone] = j1
-        q, d, e, resid, rows = q[keep], d[keep], e[keep], resid[keep], \
-            rows[keep]
-        operands = tuple(t[keep] for t in operands)
+        if keep is None:
+            gone = torch.arange(rows.numel(), device=device)
+            stay = gone[:0]
+        else:
+            with span("lanczos/sync"):
+                count("host_sync")
+                stay = keep.nonzero().squeeze(-1)
+            # Rows not kept sort first, each set in working-set order.
+            gone = torch.argsort(keep.to(torch.int8), stable=True)[
+                :keep.numel() - stay.numel()]
+        out_rows = rows[gone]
+        out_q[out_rows], out_d[out_rows], out_e[out_rows] = \
+            q[gone], d[gone], e[gone]
+        out_resid[out_rows] = resid[gone]
+        # A device tensor: a Python number would be copied from the host.
+        out_steps[out_rows] = torch.full_like(out_rows, j1,
+                                              dtype=out_steps.dtype)
+        q, d, e, resid, rows = q[stay], d[stay], e[stay], resid[stay], \
+            rows[stay]
+        operands = tuple(t[stay] for t in operands)
 
     def project_out(x):
         # Rows of q beyond the basis are exactly zero: no mask needed.
@@ -240,36 +270,39 @@ def lanczos_iterate(
 
     j1 = 0
     for j in range(m):
-        qj = q[:, j]
-        w = apply(operands, qj)
-        alpha = (qj * w).sum(dim=-1)
-        w = w - alpha.unsqueeze(-1) * qj
-        w = project_out(project_out(w))  # CGS2
-        beta = torch.linalg.vector_norm(w, dim=-1)
-        d[:, j] = alpha
-        scale = torch.maximum(d.abs().amax(dim=-1), e.abs().amax(dim=-1))
-        breakdown = beta <= torch.maximum(100.0 * eps * scale, floor)
-        qn = w / torch.maximum(beta, floor).unsqueeze(-1)
-        if bool(breakdown.any()):
-            # An invariant subspace was captured: go on in a fresh direction
-            # orthogonal to the basis, through a zero band junction.
-            r = _gaussian(n, _restart_seed(seed, j), dtype, device)
-            r = project_out(r.expand(qn.shape))
-            rn = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
-            r = torch.where(rn > floor, r / torch.maximum(rn, floor), 0.0)
-            qn = torch.where(breakdown.unsqueeze(-1), r, qn)
-        e[:, j] = torch.where(breakdown, 0.0, beta)
-        q[:, j + 1] = qn
-        j1 = j + 1
-        if window is not None and j1 % check_every == 0 and j1 >= k_win + 1:
-            resid = _ritz_resid(d, e, j1, beta, window, floor)
-            done = (resid <= rtol).all(dim=-1)
-            if bool(done.any()):
-                retire(~done, j1)
-                if rows.numel() == 0:
-                    break
+        with span("lanczos/step"):
+            qj = q[:, j]
+            w = apply(operands, qj)
+            alpha = (qj * w).sum(dim=-1)
+            w = w - alpha.unsqueeze(-1) * qj
+            w = project_out(project_out(w))  # CGS2
+            beta = torch.linalg.vector_norm(w, dim=-1)
+            d[:, j] = alpha
+            scale = torch.maximum(d.abs().amax(dim=-1), e.abs().amax(dim=-1))
+            breakdown = beta <= torch.maximum(100.0 * eps * scale, floor)
+            qn = w / torch.maximum(beta, floor).unsqueeze(-1)
+            if _any(breakdown):
+                # An invariant subspace was captured: go on in a fresh
+                # direction orthogonal to the basis, through a zero band
+                # junction.
+                r = _gaussian(n, _restart_seed(seed, j), dtype, device)
+                r = project_out(r.expand(qn.shape))
+                rn = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
+                r = torch.where(rn > floor, r / torch.maximum(rn, floor), 0.0)
+                qn = torch.where(breakdown.unsqueeze(-1), r, qn)
+            e[:, j] = torch.where(breakdown, 0.0, beta)
+            q[:, j + 1] = qn
+            j1 = j + 1
+            if (window is not None and j1 % check_every == 0
+                    and j1 >= k_win + 1):
+                resid = _ritz_resid(d, e, j1, beta, window, floor)
+                done = (resid <= rtol).all(dim=-1)
+                if _any(done):
+                    retire(~done, j1)
+                    if rows.numel() == 0:
+                        break
     if rows.numel():
-        retire(torch.zeros_like(rows, dtype=torch.bool), j1)
+        retire(None, j1)
     out = (out_d, out_e, out_q, out_steps, out_resid)
     return tuple(x[0] for x in out) if squeeze else out
 

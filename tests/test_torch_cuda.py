@@ -8,11 +8,14 @@ neither jax nor repro, so it runs on a machine that has only PyTorch:
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
 
+import json
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import Rank1Update, SolverEngine, SolverPlan
+from repro_torch import Rank1Update, SolverEngine, SolverPlan, tracing
 from repro_torch.core import minors
 from repro_torch.kernels.prod_diff import kernel as pd_kernel
 from repro_torch.kernels.prod_diff import ops as pd_ops
@@ -1031,3 +1034,116 @@ def test_dry_run_count_on_meta_equals_its_count_on_the_card(cuda_device,
     assert card["collectives"] == meta["collectives"]
     assert (card["memory"]["argument_size_in_bytes"]
             == meta["memory"]["argument_size_in_bytes"])
+
+
+def _main_path_calls(device):
+    """A solve (n = 600, b = 4) and a Krylov top-k (n = 600, b = 4, k = 8,
+    m = 128) on the card, each with its program."""
+    from repro_torch.engine.engine import ProgramSpec, program
+
+    gen = torch.Generator().manual_seed(26)
+    x = torch.randn(4, 600, 600, dtype=torch.float64, generator=gen)
+    a = (x + x.transpose(-1, -2)).to(device)
+    solve_plan = SolverPlan(method="eei_tridiag", backend="cuda")
+    topk_plan = SolverPlan(method="eei_krylov", backend="cuda", krylov_m=128)
+    solve = SolverEngine(solve_plan, device=device)
+    topk = SolverEngine(topk_plan, device=device)
+    return {"solve": (program(solve_plan, ProgramSpec("solve")),
+                      lambda: solve.solve(a)),
+            "topk": (program(topk_plan, ProgramSpec("topk", 8, True)),
+                     lambda: topk.topk(a, 8))}
+
+
+def _synchronising_operations(fn) -> list:
+    """Where ``fn()`` synchronised with the card, as ``set_sync_debug_mode``
+    reports it: ``file:line`` of each operation."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "synchronizing" in str(w.message)]
+
+
+def _staggered_lanczos(device):
+    """A Lanczos loop whose matrices converge at different residual checks
+    (8, 24 and 40 on the CPU) and leave the working set there."""
+    from repro_torch.linalg import lanczos
+
+    rng = np.random.default_rng(21)
+    n = 48
+    q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    g = rng.standard_normal((n, n))
+    tops = ((10.0, 20.0), (1.5, 2.0))
+    a = torch.tensor(np.stack([g + g.T] + [
+        q @ np.diag(np.concatenate([np.linspace(0, 1, n - 2), top])) @ q.T
+        for top in tops]), device=device)
+    return lambda: lanczos.lanczos_iterate(a, 40, window=(2, True),
+                                           check_every=8, rtol=1e-8)
+
+
+@pytest.mark.parametrize("call", ["solve", "topk", "lanczos_retire"])
+def test_host_sync_count_equals_the_card_s_synchronising_operations(
+        cuda_device, call):
+    """``host_sync`` counts every wait for the card on the main path: as
+    many as ``set_sync_debug_mode`` reports for the same call, after one
+    warm call made the same way.  A retire of converged matrices is one
+    wait."""
+    if call == "lanczos_retire":
+        fn = _staggered_lanczos(cuda_device)
+        steps = fn()[3]
+        assert len(set(steps.tolist())) >= 2, steps  # left mid-loop
+    else:
+        _, fn = _main_path_calls(cuda_device)[call]
+    _synchronising_operations(fn)
+    before = tracing.counts().get("host_sync", 0)
+    reported = _synchronising_operations(fn)
+    counted = tracing.counts().get("host_sync", 0) - before
+    assert counted == len(reported), reported
+
+
+def _kernels_and_spans(fn, path):
+    """Each device op's launch time under a CUDA profile of ``fn()``, and
+    the ``stage/`` spans, as ``(start, end)`` in microseconds."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ops = [launched.get(e.get("args", {}).get("correlation")) for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e["name"].startswith("stage/")]
+    return ops, spans
+
+
+@pytest.mark.parametrize("call", ["solve", "topk"])
+def test_every_kernel_of_a_call_is_launched_inside_a_stage_span(
+        cuda_device, call, tmp_path):
+    """Under a CUDA profile each kernel, copy and memset of a call ties to
+    the ``stage/<role>/<name>`` span open at its launch, but for those of
+    the program's initial state (the top-k window's indices), which runs
+    before the first stage."""
+    prog, fn = _main_path_calls(cuda_device)[call]
+    fn()
+    torch.cuda.synchronize()
+    ops, spans = _kernels_and_spans(fn, tmp_path / "call.json")
+    assert ops and len(spans) == len(prog.stages)
+    a = torch.zeros((4, 600, 600), dtype=torch.float64, device=cuda_device)
+    init, _ = _kernels_and_spans(lambda: prog.initial_state(a),
+                                 tmp_path / "init.json")
+    outside = [ts for ts in ops
+               if ts is None or not any(s <= ts <= t for s, t in spans)]
+    assert len(outside) == len(init), (len(outside), len(init))
