@@ -2186,20 +2186,55 @@ def _stage_split(torch, plan, spec, a):
     return ", ".join(parts)
 
 
+class _GraphRecord(tuple):
+    """A ``_capture`` record ``(args, kwargs, result)`` of a call recorded
+    into a CUDA graph (the Lanczos residual check's kernel 1): it launched
+    nothing, the graph launches it at each replay (counted in its
+    wrapper's ``replayed``), and its tensors are the graph's, which each
+    replay rewrites (:func:`_settle`)."""
+
+
 def _capture(module, attr, calls):
     """Replace ``module.attr`` (a kernel's entry, by the name its caller
     looks it up under) with a wrapper that appends ``(args, kwargs,
-    result)`` to ``calls``; returns the undo.  The wrappers' own launch
-    counts are untouched."""
+    result)`` to ``calls``, a :class:`_GraphRecord` for a call under CUDA
+    graph capture; returns the undo.  The wrappers' own launch counts are
+    untouched."""
+    import torch
+
     launch = getattr(module, attr)
 
     def capturing(*args, **kwargs):
         out = launch(*args, **kwargs)
-        calls.append((args, kwargs, out))
+        record = (args, kwargs, out)
+        if (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            record = _GraphRecord(record)
+        calls.append(record)
         return out
 
     setattr(module, attr, capturing)
     return lambda: setattr(module, attr, launch)
+
+
+def _settle(torch, calls, start=0):
+    """Replace each :class:`_GraphRecord` of ``calls[start:]`` by a copy of
+    its operands and result as the graph's last replay left them (call
+    after the card is idle), so that later replays leave what is held
+    against the plain version as it is."""
+    for i in range(start, len(calls)):
+        if isinstance(calls[i], _GraphRecord):
+            args, kwargs, out = calls[i]
+            calls[i] = _GraphRecord((
+                tuple(x.clone() if torch.is_tensor(x) else x for x in args),
+                kwargs, out.clone()))
+
+
+def _graph_launches(records, replayed):
+    """A wrapper's launches from its ``_capture`` records and the launches
+    its graphs' replays made: each record but a :class:`_GraphRecord`, and
+    each replayed launch."""
+    return sum(not isinstance(r, _GraphRecord) for r in records) + replayed
 
 
 def _phase_dense(torch, dev):
@@ -2388,31 +2423,41 @@ def _phase_krylov(torch, dev):
         calls, steps, results, per_call = [], [], {}, {}
         undo_sturm = _capture(st_ops, "sturm_bisect", calls)
         undo_lanczos = _capture(lanczos, "lanczos_partial", steps)
+        replayed = st_kernel.sturm_bisect.replayed
         try:
             _reset_counts()
             for method, plan in plans.items():
                 eng = SolverEngine(plan)
                 for kind in ("topk", "eigenvalues"):
                     c0, s0 = len(calls), len(steps)
+                    r0 = st_kernel.sturm_bisect.replayed
                     results[(method, kind)] = (
                         eng.topk(a, k) if kind == "topk"
                         else eng.eigenvalues(a, k=k))
                     per_call[(method, kind)] = (
-                        len(calls) - c0,
+                        _graph_launches(calls[c0:],
+                                        st_kernel.sturm_bisect.replayed - r0),
+                        st_kernel.sturm_bisect.replayed - r0,
                         [int(r[2].steps[0]) for r in steps[s0:]])
             torch.cuda.synchronize()
             counts = _read_counts()
+            replayed = st_kernel.sturm_bisect.replayed - replayed
+            _settle(torch, calls)
         finally:
             undo_sturm()
             undo_lanczos()
-        for (method, kind), (launched, st) in per_call.items():
+        for (method, kind), (launched, by_graph, st) in per_call.items():
             print(f"[krylov] {name} {method} {kind}: {launched} kernel-1 "
-                  f"launches, Lanczos steps {st}")
+                  f"launches ({by_graph} by graph replays), Lanczos steps "
+                  f"{st}")
         print(f"[krylov] {name}: launches on the Krylov path {counts}")
-        check(counts["sturm_bisect"] == len(calls) > 0
+        graphed = sum(isinstance(r, _GraphRecord) for r in calls)
+        check(counts["sturm_bisect"] == _graph_launches(calls, replayed) > 0
+              and (graphed > 0 or replayed == 0)
               and all(v == 0 for key, v in counts.items()
                       if key != "sturm_bisect"),
-              f"krylov {name}: launches {counts} for {len(calls)} captured")
+              f"krylov {name}: launches {counts} for {len(calls)} captured "
+              f"({graphed} into graphs, which replayed {replayed} launches)")
         # Every launch bitwise its plain version; a launch identical to one
         # already checked (the eigenvalues program repeats its top-k's
         # reduce) is not run again.
@@ -3080,7 +3125,10 @@ def _run_counted(torch, prefix, tag, fn, calls, plain,
     by logger)``."""
     from contextlib import ExitStack
 
+    from repro_torch.kernels.sturm import kernel as st_kernel
+
     start = {key: len(c) for key, c in calls.items()}
+    replayed = st_kernel.sturm_bisect.replayed
     _reset_counts()
     for key in plain:
         plain[key] = 0
@@ -3094,10 +3142,15 @@ def _run_counted(torch, prefix, tag, fn, calls, plain,
     counts = _read_counts()
     check(not any(plain.values()), f"{prefix} {tag}: plain versions ran "
           f"on the card's path: {plain}")
+    replayed = st_kernel.sturm_bisect.replayed - replayed
+    for key, c in calls.items():
+        _settle(torch, c, start[key])
     got = {key: c[start[key]:] for key, c in calls.items()}
     for key, launched in got.items():
-        check(len(launched) == counts[key], f"{prefix} {tag}: {key} "
-              f"launched {counts[key]} times, {len(launched)} captured")
+        by_graph = replayed if key == "sturm_bisect" else 0
+        check(_graph_launches(launched, by_graph) == counts[key],
+              f"{prefix} {tag}: {key} launched {counts[key]} times, "
+              f"{len(launched)} captured ({by_graph} by graph replays)")
     check(counts["logabs_sum_masked"] == counts["logabs_sum_single"] == 0
           and all(c[1].get("mask") is None for c in got["logabs_sum"]),
           f"{prefix} {tag}: launches {counts}")

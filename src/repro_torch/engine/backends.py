@@ -110,9 +110,11 @@ def _make_krylov_stages(plan: SolverPlan) -> dict:
     from repro_torch.linalg import lanczos
 
     m = plan.krylov_m
+    graphs = lanczos.LanczosGraphs()  # kept with the program that runs it
 
     def krylov_reduce(a, k, largest):
-        return lanczos.krylov_reduce(a, int(k), bool(largest), m)
+        return lanczos.krylov_reduce(a, int(k), bool(largest), m,
+                                     graphs=graphs)
 
     def krylov_shift_invert_reduce(a, k, largest):
         return lanczos.krylov_shift_invert_reduce(a, int(k), bool(largest), m)

@@ -13,10 +13,13 @@ bracket, ``pivmin``, segment ``[start, end)`` and target index.  Its
 launch geometry (:func:`_segmented_geometry`) gives a block the lanes of
 one segment; a band of any length runs.
 
-Each wrapper's ``.launches`` counts its kernel launches.
+Each wrapper's ``.launches`` counts its kernel launches, those of a CUDA
+graph that holds :func:`sturm_bisect` at each of its replays.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -122,11 +125,33 @@ def sturm_bisect(d: torch.Tensor, e: torch.Tensor, bounds: torch.Tensor, *,
     geometry = _geometry(rows, n, m, d.element_size(), sms)
     build.launch(_ENTRY[d.dtype], d.device, d, e, bounds, out, rows, n, m,
                  target_base, n_iter, *geometry)
-    sturm_bisect.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        # Recorded into a CUDA graph: it launches at each replay, where the
+        # graph's owner counts it (``captured``, ``replayed``).
+        _captures.n = captured() + 1
+    else:
+        sturm_bisect.launches += 1
     return out
 
 
 sturm_bisect.launches = 0
+#: Of ``launches``, those made by CUDA graph replays.
+sturm_bisect.replayed = 0
+_captures = threading.local()
+
+
+def captured() -> int:
+    """How many :func:`sturm_bisect` calls this thread has made under CUDA
+    graph capture.  Such a call launches nothing: the graph launches the
+    kernel at each replay, and the graph's owner counts those launches
+    with :func:`replayed`."""
+    return getattr(_captures, "n", 0)
+
+
+def replayed(n: int) -> None:
+    """Count ``n`` kernel launches made by one CUDA graph replay."""
+    sturm_bisect.launches += n
+    sturm_bisect.replayed += n
 
 
 def sturm_segmented_plain(d, e, lo, hi, pivmin, start, end, targets, *,

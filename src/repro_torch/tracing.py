@@ -19,9 +19,15 @@ Span names:
 
 * ``stage/<role>/<name>`` around each stage of a program call
   (``engine.Program.__call__``);
-* ``lanczos/step`` around each Lanczos step and ``lanczos/sync`` around
-  each wait in the Lanczos reduce (``linalg.lanczos``), so the self time of
-  ``lanczos/step`` is the host's time issuing a step.
+* ``lanczos/step`` around each Lanczos step (on the card's graph path,
+  around each chunk of steps up to a residual check: one graph replay,
+  the check included, and its wait) and ``lanczos/sync`` around each wait in the
+  Lanczos reduce (``linalg.lanczos``), so the self time of
+  ``lanczos/step`` is the host's time issuing the steps.
+
+Counters besides ``host_sync``: ``lanczos_graph_chunk``, one a chunk of
+Lanczos steps replayed as a CUDA graph, and ``lanczos_eager_chunk``, one
+a chunk run again with a wait a step after a breakdown in it.
 """
 
 from __future__ import annotations

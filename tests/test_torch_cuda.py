@@ -9,6 +9,9 @@ neither jax nor repro, so it runs on a machine that has only PyTorch:
 """
 
 import json
+import os
+import sys
+import threading
 import warnings
 
 import numpy as np
@@ -598,7 +601,9 @@ def test_prod_diff_kernel_at_the_dense_shapes(cuda_device, dtype):
 
 def _capture_sturm_bisect():
     """Wrap ``kernels.sturm.ops``'s name for kernel 1's wrapper; returns the
-    list the launches' operands and results go to, and the undo."""
+    list the launches' operands and results go to, and the undo.  A call
+    recorded into a CUDA graph is listed too: its tensors are the graph's,
+    which hold its last replay's operands and result."""
     calls = []
     launch = st_ops.sturm_bisect
 
@@ -650,11 +655,17 @@ def test_sturm_window_on_a_guard_filled_krylov_band(cuda_device, dtype):
 def test_sturm_inside_the_lanczos_residual_check(cuda_device, dtype, method):
     """Every kernel-1 launch of a Krylov top-k (the residual checks and the
     window on the band) is bitwise its plain version, and the card's result
-    matches the CPU's (the same stopping decisions, so the same steps)."""
+    matches the CPU's (the same stopping decisions, so the same steps).
+    The checks of ``eei_krylov`` replay as CUDA graphs: each call recorded
+    into a graph is held against its plain version on the operands its
+    last replay left, and each replay's launch is counted."""
+    from repro_torch.engine import engine as engine_mod
     from repro_torch.linalg import lanczos
 
     a = _sym(np.random.default_rng(11), 2, 200, dtype, cuda_device)
     plan = SolverPlan(method=method)
+    # Fresh programs, so that this call captures its graphs.
+    engine_mod.program.cache_clear()
     calls, undo = _capture_sturm_bisect()
     steps = []
     partial = lanczos.lanczos_partial
@@ -666,15 +677,25 @@ def test_sturm_inside_the_lanczos_residual_check(cuda_device, dtype, method):
 
     lanczos.lanczos_partial = counting
     try:
-        before = st_kernel.sturm_bisect.launches
+        before = (st_kernel.sturm_bisect.launches, st_kernel.captured(),
+                  st_kernel.sturm_bisect.replayed)
         top = SolverEngine(plan).topk(a, 4)
-        launched = st_kernel.sturm_bisect.launches - before
+        torch.cuda.synchronize()
+        launched = st_kernel.sturm_bisect.launches - before[0]
+        captured = st_kernel.captured() - before[1]
+        replayed = st_kernel.sturm_bisect.replayed - before[2]
         cpu = SolverEngine(plan, device="cpu").topk(a.cpu(), 4)
     finally:
         undo()
         lanczos.lanczos_partial = partial
     card = [c for c in calls if c[0].is_cuda]
-    assert launched == len(card) >= 2  # >= 1 check, and the window
+    # >= 1 check, and the window, launched eagerly; the rest by replays.
+    assert launched == len(card) - captured + replayed
+    assert len(card) - captured >= 2
+    if method == "eei_krylov":
+        assert captured >= 1 and replayed >= 1, (captured, replayed)
+    else:
+        assert captured == replayed == 0
     for d, e, bounds, kw, out in card:
         assert torch.equal(out, st_kernel.sturm_bisect_plain(d, e, bounds,
                                                              **kw))
@@ -1070,11 +1091,10 @@ def _synchronising_operations(fn) -> list:
             if "synchronizing" in str(w.message)]
 
 
-def _staggered_lanczos(device):
-    """A Lanczos loop whose matrices converge at different residual checks
-    (8, 24 and 40 on the CPU) and leave the working set there."""
-    from repro_torch.linalg import lanczos
-
+def _staggered_stack(device):
+    """Three matrices that converge at different residual checks of a
+    Lanczos loop (8, 24 and 40 on the CPU) and leave the working set
+    there, with the loop's arguments ``(m, kwargs)``."""
     rng = np.random.default_rng(21)
     n = 48
     q = np.linalg.qr(rng.standard_normal((n, n)))[0]
@@ -1083,8 +1103,15 @@ def _staggered_lanczos(device):
     a = torch.tensor(np.stack([g + g.T] + [
         q @ np.diag(np.concatenate([np.linspace(0, 1, n - 2), top])) @ q.T
         for top in tops]), device=device)
-    return lambda: lanczos.lanczos_iterate(a, 40, window=(2, True),
-                                           check_every=8, rtol=1e-8)
+    return a, (40, dict(window=(2, True), check_every=8, rtol=1e-8))
+
+
+def _staggered_lanczos(device):
+    """A Lanczos loop on ``_staggered_stack``."""
+    from repro_torch.linalg import lanczos
+
+    a, (m, kw) = _staggered_stack(device)
+    return lambda: lanczos.lanczos_iterate(a, m, **kw)
 
 
 @pytest.mark.parametrize("call", ["solve", "topk", "lanczos_retire"])
@@ -1147,3 +1174,109 @@ def test_every_kernel_of_a_call_is_launched_inside_a_stage_span(
     outside = [ts for ts in ops
                if ts is None or not any(s <= ts <= t for s, t in spans)]
     assert len(outside) == len(init), (len(outside), len(init))
+
+
+def _lanczos_cases(case, device):
+    """Stacks for the graph path, each with ``(m, kwargs)``: a list of
+    stacks run in turn through one shape."""
+    if case in ("float64", "float32"):
+        dtype = getattr(torch, case)
+        rng = np.random.default_rng(27)
+        stacks = [_sym(rng, 4, 600, dtype, device) for _ in range(2)]
+        return stacks + stacks[:1], (128, dict(window=(8, True)))
+    if case == "staggered":
+        a, args = _staggered_stack(device)
+        return [a, a], args
+    low = np.random.default_rng(3).standard_normal((2, 48, 4))
+    a = torch.as_tensor(low @ np.swapaxes(low, 1, 2), device=device)
+    return [a, a], (40, dict(window=(2, True), check_every=8, rtol=1e-8))
+
+
+@pytest.mark.parametrize("case", ["float64", "float32", "staggered",
+                                  "rank_deficient"])
+def test_lanczos_graph_chunks_are_bitwise_the_loop_with_waits(cuda_device,
+                                                              case):
+    """``lanczos_iterate`` on the card (the steps between two residual
+    checks one CUDA graph replay, no wait inside) gives the loop that waits
+    for each step's breakdown test bit for bit: ``(d, e, Q, steps,
+    resid)``, for two stacks in turn through one graph, a stack whose
+    matrices leave mid-loop, and a rank-deficient one that breaks down
+    inside a chunk and runs that chunk again with waits."""
+    from repro_torch.linalg import lanczos
+
+    stacks, (m, kw) = _lanczos_cases(case, cuda_device)
+    graphs = lanczos.LanczosGraphs()
+    for i, a in enumerate(stacks):
+        tracing.reset()
+        got = lanczos.lanczos_iterate(a, m, graphs=graphs, **kw)
+        counts = tracing.counts()
+        want = lanczos._iterate(a, m, False, **kw)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (case, i)
+        if case == "rank_deficient":
+            assert counts.get("lanczos_eager_chunk", 0) >= 1, counts
+        elif i:  # captured by the first call
+            assert counts.get("lanczos_eager_chunk", 0) == 0, counts
+            assert counts.get("lanczos_graph_chunk", 0) >= 1, counts
+    if case == "float64":
+        # Every chunk of a later call is one replay, one wait at its check.
+        assert counts == {"host_sync": 1 + m // 32,
+                          "lanczos_graph_chunk": m // 32}
+    if case == "staggered":
+        assert len(set(got[3].tolist())) == 3, got[3]
+
+
+def test_lanczos_graph_buffers_are_used_by_one_thread_at_a_time(cuda_device):
+    """Threads calling the Lanczos loop on stacks of one shape at once: each
+    result is the loop with waits on its own stack (a thread that finds the
+    shape's buffers in use runs its chunks without a graph)."""
+    from repro_torch.linalg import lanczos
+
+    rng = np.random.default_rng(28)
+    stacks = [_sym(rng, 2, 256, torch.float64, cuda_device)
+              for _ in range(3)]
+    kw = dict(window=(4, True))
+    want = [lanczos._iterate(a, 64, False, **kw) for a in stacks]
+    torch.cuda.synchronize()
+    graphs = lanczos.LanczosGraphs()
+    bad = []
+
+    def worker(w):
+        for i in range(4):
+            j = (w + i) % len(stacks)
+            got = lanczos.lanczos_iterate(stacks[j], 64, graphs=graphs, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, want[j])):
+                bad.append((w, i))
+
+    # More threads than the host has cores.
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(2 * (os.cpu_count() or 8))]
+    was = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(was)
+    assert not any(th.is_alive() for th in threads)
+    assert bad == []
+
+
+def test_one_stack_shape_replays_the_graph_of_its_own_check(cuda_device):
+    """Calls on stacks of one shape with other windows, sides and ``rtol``
+    in turn: each replays a graph captured for its own residual check and
+    equals the loop with waits."""
+    from repro_torch.linalg import lanczos
+
+    a = _sym(np.random.default_rng(29), 2, 200, torch.float64, cuda_device)
+    graphs = lanczos.LanczosGraphs()
+    for kw in (dict(window=(8, True)), dict(window=(6, True)),
+               dict(window=(8, False)), dict(window=(8, True), rtol=1e-3),
+               dict(window=(8, True)), dict()):
+        got = lanczos.lanczos_iterate(a, 64, check_every=16, graphs=graphs,
+                                      **kw)
+        want = lanczos._iterate(a, 64, False, check_every=16, **kw)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), kw

@@ -26,7 +26,8 @@ from test_torch_parity import np_of, t  # noqa: E402
 
 import repro.engine as r_engine  # noqa: E402
 from repro.linalg import lanczos as r_lanczos  # noqa: E402
-from repro_torch import Rank1Update, SolverEngine, SolverPlan  # noqa: E402
+from repro_torch import (  # noqa: E402
+    Rank1Update, SolverEngine, SolverPlan, tracing)
 from repro_torch.interop import plan_from_reference  # noqa: E402
 from repro_torch.linalg import lanczos  # noqa: E402
 
@@ -127,6 +128,58 @@ def test_breakdown_restart_fills_window_past_rank():
     res = lanczos.lanczos_partial(t(a), 16, k)
     assert int(res.steps) == 16
     assert np.any(np_of(res.e) == 0.0)
+
+
+def _spiked_stack(b: int, n: int, seed: int) -> np.ndarray:
+    """A GOE bulk with four planted spikes a matrix."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(b):
+        g = rng.standard_normal((n, n))
+        u = np.linalg.qr(rng.standard_normal((n, 4)))[0]
+        out.append((g + g.T) / np.sqrt(2 * n)
+                   + u @ np.diag([2.0, 3.0, 4.0, 5.0]) @ u.T)
+    return np.stack(out)
+
+
+def _rank_deficient() -> np.ndarray:
+    """``test_breakdown_restart_fills_window_past_rank``'s rank-4 matrix."""
+    low = np.random.default_rng(3).standard_normal((48, 4))
+    return low @ low.T
+
+
+@pytest.mark.parametrize("case,m,k,check_every,redone", [
+    ("rank_deficient", 16, 8, 8, 2),
+    ("spiked_n64", 48, 4, 16, 0),
+    ("staggered", 40, 2, 8, 0),
+])
+def test_chunks_without_waits_match_the_loop_with_waits(case, m, k,
+                                                        check_every, redone):
+    """The steps between two residual checks run with no wait (the card's
+    graph path, without the graph): bitwise the loop that waits for each
+    step's breakdown test.  A chunk in which a matrix broke down is zeroed
+    and run again with waits; the other chunks wait once, at their end."""
+    a = t({"rank_deficient": _rank_deficient,
+           "spiked_n64": lambda: _spiked_stack(3, 64, 8),
+           "staggered": lambda: _staggered_stack(48)}[case]())
+    kw = dict(window=(k, True), check_every=check_every, rtol=1e-8)
+    tracing.reset()
+    waits = lanczos._iterate(a, m, False, **kw)
+    per_step = tracing.counts()
+    tracing.reset()
+    chunks = lanczos._iterate(a, m, True, **kw)
+    chunked = tracing.counts()
+    for got, want in zip(chunks, waits):
+        assert torch.equal(got, want)
+    for got, want in zip(lanczos.lanczos_iterate(a, m, **kw), waits):
+        assert torch.equal(got, want)  # the CPU takes the loop with waits
+    assert chunked.get("lanczos_eager_chunk", 0) == redone
+    if redone:
+        assert np.any(np_of(chunks[1]) == 0.0)  # a zero junction
+    else:
+        assert chunked["host_sync"] < per_step["host_sync"]
+    if case == "staggered":
+        assert len(set(np_of(chunks[3]).tolist())) == 3  # rows left mid-loop
 
 
 @pytest.mark.parametrize("largest", [True, False])

@@ -103,10 +103,9 @@ def test_lanczos_steps_and_host_syncs(profiled):
                                       check_every=check_every)
     steps = out[3]
     assert steps.tolist() == [m, m]  # float64 runs every step here
-    # The floor and the start vector's copy, a breakdown test a step, the
-    # floor and the convergence test at each check; the matrices leave
-    # after the loop with no wait.
-    want = 2 + m + 2 * _check_steps(check_every, k, m)
+    # The start vector's copy, a breakdown test a step, the convergence
+    # test at each check; the matrices leave after the loop with no wait.
+    want = 1 + m + _check_steps(check_every, k, m)
     assert tracing.counts() == {"host_sync": want}
     spans = tracing.spans()
     if not profiled:
@@ -115,7 +114,7 @@ def test_lanczos_steps_and_host_syncs(profiled):
     assert set(spans) == {"lanczos/step", "lanczos/sync"}
     assert spans["lanczos/step"]["n"] == m
     assert spans["lanczos/sync"]["n"] == want
-    # Each step's waits are nested in it; the two before the loop are not.
+    # Each step's waits are nested in it; the one before the loop is not.
     step = spans["lanczos/step"]
     assert 0 < step["self_s"] < step["s"]
     assert spans["lanczos/sync"]["self_s"] == spans["lanczos/sync"]["s"]
@@ -149,7 +148,7 @@ def test_a_retire_is_one_counted_wait():
     left = {s for s, done in zip(steps, (resid <= rtol).all(dim=-1).tolist())
             if done}
     last = max(steps)
-    want = 2 + last + 2 * _check_steps(check_every, k, last) + len(left)
+    want = 1 + last + _check_steps(check_every, k, last) + len(left)
     assert tracing.counts() == {"host_sync": want}
 
 
