@@ -26,6 +26,47 @@ After the window every result is compared with the plain reference
 (``bench/reference.py``) of its input; each compared number is printed
 beside its limit, on the last lines of standard error and under the last
 key of the result line, the last line of standard output.
+
+The op contract.  An op module (``bench/ops/<op>.py``) always gives
+``CHECKS`` (the compared numbers' names, the keys of the traffic's
+``limits``), ``call`` (one call of the timed path; set-up's warm calls, the
+window, the traced calls), ``flops_per_matrix(config, traffic, levels)``
+(``eei_mfu``) and ``compare(result, ref)`` (one number a matrix for each
+of ``CHECKS``).  Each function below is optional: ``load_op`` fills in the
+default, in brackets, of each one the op lacks, and ``run_cell`` and
+``_judge`` call every one of them.  The defaults are the whole path of the
+``solve`` and ``topk`` ops.
+
+``plan(shape, config, traffic)``
+    the ``SolverPlan`` of the engine (``plan_for(shape, k=op.plan_k(
+    traffic), precision=config["precision"])``).  ``run_cell`` calls it
+    once in set-up; the ``bench info`` line prints its pick.
+``draw(config, traffic, gen, device)``
+    the op's inputs beyond the pool, drawn in set-up from ``gen``, the
+    pool's generator, after the pool (None).  Whatever it returns is handed,
+    as ``inputs``, to every ``call(engine, stack, traffic, inputs)`` and
+    ``split``; the window draws nothing.  An op that draws nothing gives
+    ``call(engine, stack, traffic)``.  The op may keep its running state in
+    ``inputs``: the reference is handed a copy made before the first call.
+``reference_key(idx, ordinal, inputs)``
+    the key under which the reference of a kept call is cached, or None
+    where the call is not compared (``idx``).  ``idx`` is the call's pool
+    stack and ``ordinal`` the number of calls made on that stack before it,
+    set-up's warm call counted: the first kept call on a stack is 1.
+    ``_judge`` walks the kept calls in call order.
+``reference_for(idx, ordinal, pool, inputs, traffic)``
+    the reference of a kept call, from the pool and the copy of the op's
+    drawn inputs alone (``reference(pool[idx], traffic)``: once a pool
+    stack).
+``programs(engine, plan, traffic)``
+    the cached program objects a call runs; ``trace.annotated`` spans the
+    stages of each in the traced calls (``[program(plan,
+    op.program_spec(traffic))]``).
+``split(engine, stack, inputs, traffic, walk)``
+    one stage-split call, which runs each program as ``walk(prog, *args)``
+    (``args``: the program's ``initial_state`` arguments) and returns the
+    call's result (``walk(programs[0], stack)``).  Stage times add up under
+    ``role/name``, whichever program ran the stage.
 """
 
 import time
@@ -33,6 +74,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import copy  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -89,8 +131,34 @@ def _load(path: Path, tag: str):
 
 
 def load_op(cell: dict):
-    op = cell["traffic"]["op"]
-    return _load(cell["root"] / "bench" / "ops" / f"{op}.py", f"bench_op_{op}")
+    """The cell's op module, with the default of each optional function
+    it lacks (the op contract, above)."""
+    name = cell["traffic"]["op"]
+    op = _load(cell["root"] / "bench" / "ops" / f"{name}.py",
+               f"bench_op_{name}")
+    from repro_torch import plan_for
+    from repro_torch.engine.engine import program
+
+    if not hasattr(op, "draw"):
+        call = op.call
+        op.call = (lambda engine, stack, traffic, inputs=None:
+                   call(engine, stack, traffic))
+        op.draw = lambda config, traffic, gen, device: None
+    defaults = {
+        "plan": lambda shape, config, traffic: plan_for(
+            shape, k=op.plan_k(traffic), precision=config["precision"]),
+        "reference_key": lambda idx, ordinal, inputs: idx,
+        "reference_for": lambda idx, ordinal, pool, inputs, traffic:
+            op.reference(pool[idx], traffic),
+        "programs": lambda engine, plan, traffic:
+            [program(plan, op.program_spec(traffic))],
+        "split": lambda engine, stack, inputs, traffic, walk:
+            walk(op.programs(engine, engine.plan, traffic)[0], stack),
+    }
+    for key, fn in defaults.items():
+        if not hasattr(op, key):
+            setattr(op, key, fn)
+    return op
 
 
 def load_reader(cell: dict, metric: str):
@@ -136,20 +204,47 @@ def _plan_pick(plan, config: dict, traffic: dict) -> dict:
     return pick
 
 
-def _judge(op, pool: list, kept: list, traffic: dict, b: int, device):
-    """Every kept result against the plain reference of its input: the
-    largest reading of each compared number beside its limit, and how
-    many matrices read beyond a limit."""
+def _draw(op, config: dict, traffic: dict, seed: int, device):
+    """The pool (the stacks ``ensembles.draw`` makes of ``seed``), the
+    op's inputs drawn after it from the same generator, and a copy of
+    those inputs for the reference."""
+    import torch
+
+    from bench import ensembles
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
+    make = ensembles.ENSEMBLES[config["ensemble"]]
+    pool = [make(config, int(traffic["b"]), gen, device)
+            for _ in range(int(traffic["pool"]))]
+    inputs = op.draw(config, traffic, gen, device)
+    return pool, inputs, copy.deepcopy(inputs)
+
+
+def _judge(op, pool: list, kept: list, traffic: dict, b: int, device,
+           inputs=None):
+    """Every kept result against the plain reference of its call, walked
+    in call order: the largest reading of each compared number beside its
+    limit, how many matrices read beyond a limit, and how many calls were
+    compared."""
     import torch
 
     limits = traffic["limits"]
     worst = {name: 0.0 for name in op.CHECKS}
-    failed = 0
+    failed = compared = 0
     refs = {}
+    # Set-up made one call a stack, and ``kept`` holds every later call.
+    made = [1] * len(pool)
     for idx, out in kept:
-        if idx not in refs:
-            refs[idx] = op.reference(pool[idx], traffic)
-        numbers = op.compare(out, refs[idx])
+        ordinal = made[idx]
+        made[idx] += 1
+        key = op.reference_key(idx, ordinal, inputs)
+        if key is None:
+            continue
+        if key not in refs:
+            refs[key] = op.reference_for(idx, ordinal, pool, inputs, traffic)
+        compared += 1
+        numbers = op.compare(out, refs[key])
         bad = torch.zeros(b, dtype=torch.bool, device=device)
         for name in op.CHECKS:
             x = numbers[name]
@@ -161,7 +256,7 @@ def _judge(op, pool: list, kept: list, traffic: dict, b: int, device):
         failed += int(bad.sum())
     checks = {name: {"value": worst[name], "limit": limits[name]}
               for name in op.CHECKS}
-    return checks, failed
+    return checks, failed, compared
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device,
@@ -171,11 +266,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device,
     earlier line's (``info``)."""
     import torch
 
-    from repro_torch import SolverEngine, plan_for
+    from repro_torch import SolverEngine
     from repro_torch.engine import autotune
-    from repro_torch.engine.engine import program
 
-    from bench import ensembles, roofline, trace
+    from bench import roofline, trace
 
     marks = [("imports", time.perf_counter())]
     device = torch.device(device)
@@ -192,14 +286,13 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device,
         build.library()
         torch.cuda.init()
     marks.append(("kernels_and_context", time.perf_counter()))
-    pool = ensembles.draw(config, traffic, seed, device)
+    pool, inputs, drawn = _draw(op, config, traffic, seed, device)
     trace.sync(device)
     marks.append(("pool", time.perf_counter()))
-    plan = plan_for(tuple(pool[0].shape), k=op.plan_k(traffic),
-                    precision=precision)
+    plan = op.plan(tuple(pool[0].shape), config, traffic)
     engine = SolverEngine(plan, device=device)
     for stack in pool:
-        op.call(engine, stack, traffic)
+        op.call(engine, stack, traffic, inputs)
     trace.sync(device)
     marks.append(("warm_calls", time.perf_counter()))
     counters = _launch_counters()
@@ -216,7 +309,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device,
         while time.perf_counter() < deadline:
             idx = len(lat) % pool_n
             ts = time.perf_counter()
-            out = op.call(engine, pool[idx], traffic)
+            out = op.call(engine, pool[idx], traffic, inputs)
             trace.sync(device)
             t1 = time.perf_counter()
             lat.append(t1 - ts)
@@ -224,28 +317,32 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device,
         record.update(latencies_s=lat, matrices_per_call=b, window_s=t1 - t0)
         calls = len(lat)
     else:
-        prog = program(plan, op.program_spec(traffic))
+        progs = op.programs(engine, plan, traffic)
         n_traced = int(traffic["trace_calls"])
 
         def loop():
             outs = []
             for i in range(n_traced):
                 outs.append((i % pool_n,
-                             op.call(engine, pool[i % pool_n], traffic)))
+                             op.call(engine, pool[i % pool_n], traffic,
+                                     inputs)))
                 trace.sync(device)
             return outs
 
-        with trace.annotated(prog):
+        with trace.annotated(*progs):
             outs, events = trace.profile(loop, device)
         kept += outs
         reduced = trace.reduce(events)
         del events
         stage_ms = {}
         n_split = int(traffic["split_calls"])
+
+        def walk(prog, *args):
+            return trace.split(prog, args, device, stage_ms)
+
         for i in range(n_split):
-            kept.append((i % pool_n,
-                         trace.split(prog, pool[i % pool_n], device,
-                                     stage_ms)))
+            kept.append((i % pool_n, op.split(engine, pool[i % pool_n],
+                                              inputs, traffic, walk)))
         levels = roofline.LEVELS[precision]
         record.update(
             reduced, stage_ms=stage_ms, split_calls=n_split, calls=n_traced,
@@ -270,8 +367,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device,
     del engine
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    checks, failed = _judge(op, pool, kept, traffic, b, device)
-    correct = calls > 0 and failed == 0 and all(
+    checks, failed, compared = _judge(op, pool, kept, traffic, b, device,
+                                      drawn)
+    correct = compared > 0 and failed == 0 and all(
         c["value"] is not None and c["value"] <= c["limit"]
         for c in checks.values())
 
@@ -298,6 +396,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace_on: bool, device,
     if trace_on:
         staged = sum(k["stage"] is not None for k in record["kernels"])
         info["device_ops_in_a_stage"] = [staged, len(record["kernels"])]
+        info["stage_ms"] = {key: ms / max(n_split, 1)
+                            for key, ms in stage_ms.items()}
     return {"result": result, "info": info}
 
 

@@ -210,7 +210,7 @@ def test_traced_line_carries_the_extra_metric_and_the_breakdown(small_root):
     assert result["correct"] is True
     # Device metrics are never read from a CPU run.
     assert set(result["metrics"]) == {"lanczos_ms", "recover_ms",
-                                      "traced_calls"}
+                                      "minor_det_ms", "traced_calls"}
     assert result["metrics"]["traced_calls"]["value"] == 1
     assert {"busy_s", "window_s"} <= set(result["device"])
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}

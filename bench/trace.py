@@ -2,10 +2,10 @@
 trace and a stage split to the record that ``bench/metrics/*.py`` read.
 
 The spans: one ``record_function`` around the traced window and one around
-each stage of the program's stage chain (the stages are wrapped on the
-cached program object the engine runs, and unwrapped after).  A kernel
-belongs to the stage whose span was open on the host when it was launched
-(the launch's correlation id ties the two).
+each stage of the stage chain of each program the cell's call runs (the
+stages are wrapped on the cached program objects the engine runs, and
+unwrapped after).  A kernel belongs to the stage whose span was open on the
+host when it was launched (the launch's correlation id ties the two).
 """
 
 import bisect
@@ -32,10 +32,10 @@ def sync(device) -> None:
 
 
 @contextlib.contextmanager
-def annotated(prog):
-    """Wrap each stage of ``prog`` in a span named after its role and
-    implementation for the duration of the block."""
-    stages = prog.stages
+def annotated(*progs):
+    """Wrap each stage of each program in ``progs`` in a span named after
+    its role and implementation for the duration of the block.  A program
+    listed twice is wrapped once."""
 
     def wrap(sig, fn):
         label = f"{STAGE}{sig.role}/{sig.name}"
@@ -46,11 +46,15 @@ def annotated(prog):
 
         return run
 
-    prog.stages = tuple((sig, wrap(sig, fn)) for sig, fn in stages)
+    saved = []
+    for prog in {id(p): p for p in progs}.values():
+        saved.append((prog, prog.stages))
+        prog.stages = tuple((sig, wrap(sig, fn)) for sig, fn in prog.stages)
     try:
         yield
     finally:
-        prog.stages = stages
+        for prog, stages in saved:
+            prog.stages = stages
 
 
 def profile(loop, device):
@@ -73,10 +77,12 @@ def profile(loop, device):
     return out, events
 
 
-def split(prog, stack, device, stage_ms: dict):
-    """One call walking ``prog``'s stages with a synchronise around each;
-    adds each stage's wall ms to ``stage_ms`` and returns the result."""
-    state = prog.initial_state(stack)
+def split(prog, args: tuple, device, stage_ms: dict):
+    """One call of ``prog`` on ``args`` (its ``initial_state``'s arguments:
+    ``(stack,)`` for a plain program) walking its stages with a synchronise
+    around each; adds each stage's wall ms to ``stage_ms`` under
+    ``role/name`` and returns the result."""
+    state = prog.initial_state(*args)
     for sig, fn in prog.stages:
         sync(device)
         t = time.perf_counter()
