@@ -22,6 +22,14 @@ failed verify, ``max_updates`` updates since the last solve) forces a full
 re-solve through ``engine.topk``, so every answer is either verified against
 the updated matrix or freshly solved.  :func:`host_reseed` is the last rung:
 float64 LAPACK ``eigh`` on the host when a re-solve itself fails verify.
+
+Spans and counters (``repro_torch.tracing``): ``session/fast`` around an
+update's fast path, from the norm read to the state commit (or to the
+monitor's call for a re-solve), and ``session/resolve`` around each full
+re-solve, its host verify and host reseed included; ``session_fast_update``
+at each fast commit, ``session_resolve`` at each re-solve of any cause but
+``open``, ``session_host_reseed`` at each host reseed, and ``host_sync`` at
+each wait: the norm's read, the verify flag's read, each copy to the host.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.verify import verify_topk_host
+from repro_torch.tracing import count, span
 
 
 class SessionVerifyError(RuntimeError):
@@ -137,6 +146,8 @@ def _plan_dtype(plan) -> torch.dtype:
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
+    """``x`` copied to the host: on the card the host waits for it."""
+    count("host_sync")
     return x.detach().cpu().numpy()
 
 
@@ -194,6 +205,7 @@ def _commit_resolve(session, a_new, res, cause: str) -> None:
     session.drift = 0.0
     session.updates_since_resolve = 0
     if cause != "open":
+        count("session_resolve")
         session.full_resolves += 1
         session.resolves_by_cause[cause] = \
             session.resolves_by_cause.get(cause, 0) + 1
@@ -204,6 +216,7 @@ def host_reseed(session, a_new, cause: str = "degrade") -> None:
     terminal rung, usable when the engine's backend is broken.  Raises
     :class:`SessionVerifyError` only when even that window fails
     verification."""
+    count("session_host_reseed")
     res = _host_eigh_window(session, a_new)
     flags = verify_topk_host(_host(a_new), _host(res.eigenvalues),
                              _host(res.vectors))
@@ -216,16 +229,17 @@ def host_reseed(session, a_new, cause: str = "degrade") -> None:
 
 def _full_resolve(engine, session, a_new, cause: str) -> None:
     """Rebuild the retained window from scratch and reset the monitor."""
-    res = engine.topk(a_new, session.m_keep, session.largest)
-    if session.config.verify:
-        flags = verify_topk_host(_host(a_new), _host(res.eigenvalues),
-                                 _host(res.vectors))
-        if not bool(np.all(flags.ok)):
-            # The plan's method missed tolerance on this matrix: escalate to
-            # the host rather than surface a method artifact.
-            host_reseed(session, a_new, cause)
-            return
-    _commit_resolve(session, a_new, res, cause)
+    with span("session/resolve"):
+        res = engine.topk(a_new, session.m_keep, session.largest)
+        if session.config.verify:
+            flags = verify_topk_host(_host(a_new), _host(res.eigenvalues),
+                                     _host(res.vectors))
+            if not bool(np.all(flags.ok)):
+                # The plan's method missed tolerance on this matrix: escalate
+                # to the host rather than surface a method artifact.
+                host_reseed(session, a_new, cause)
+                return
+        _commit_resolve(session, a_new, res, cause)
 
 
 def _pad_batch(engine, x: torch.Tensor) -> torch.Tensor:
@@ -271,44 +285,53 @@ def _apply_rank1(engine, session, upd: Rank1Update) -> None:
     if tuple(u.shape) != (session.n,):
         raise ValueError(f"expected update vector of shape ({session.n},), "
                          f"got {tuple(u.shape)}")
-    nrm2_t = torch.dot(u, u)
-    nrm2 = float(nrm2_t)
-    if not np.isfinite(nrm2):
-        raise ValueError("update vector is not finite")
-    session.updates_total += 1
-    if nrm2 == 0.0:
-        return  # A + 0 = A: nothing to do, nothing drifts
-    rho = sign * nrm2
-    new_drift = session.drift + abs(rho) / max(session.scale, 1e-30)
+    with span("session/fast"):
+        nrm2_t = torch.dot(u, u)
+        count("host_sync")
+        nrm2 = float(nrm2_t)
+        if not np.isfinite(nrm2):
+            raise ValueError("update vector is not finite")
+        session.updates_total += 1
+        if nrm2 == 0.0:
+            return  # A + 0 = A: nothing to do, nothing drifts
+        rho = sign * nrm2
+        new_drift = session.drift + abs(rho) / max(session.scale, 1e-30)
 
-    # Drift monitor, legs 1 and 2: accumulated movement and cadence.
-    if new_drift > cfg.drift_bound or \
-            session.updates_since_resolve + 1 > cfg.max_updates:
-        cause = "drift" if new_drift > cfg.drift_bound else "cadence"
-        a_new = session.a + (sign * u)[:, None] * u[None, :]
-        _full_resolve(engine, session, a_new, cause=cause)
-        return
+        # Drift monitor, legs 1 and 2: accumulated movement and cadence.
+        if new_drift > cfg.drift_bound or \
+                session.updates_since_resolve + 1 > cfg.max_updates:
+            cause = "drift" if new_drift > cfg.drift_bound else "cadence"
+            a_new = session.a + (sign * u)[:, None] * u[None, :]
+        else:
+            # Fast path: the warm-started update program on a batch of one,
+            # lifted to the mesh's batch axis under a sharded plan; row 0 is
+            # the session's.
+            prog = update_program(engine.plan, session.k, session.largest,
+                                  session.m_keep, session.n_aug)
+            u_hat = u / torch.sqrt(nrm2_t)
+            padded = [_pad_batch(engine, x) for x in
+                      (session.a, session.basis, session.theta, u_hat)]
+            rho_t = torch.full((padded[0].shape[0],), rho,
+                               dtype=session.dtype, device=session.device)
+            result, flags, a_new, basis, theta = prog(*padded, rho_t)
 
-    # Fast path: the warm-started update program on a batch of one, lifted
-    # to the mesh's batch axis under a sharded plan; row 0 is the session's.
-    prog = update_program(engine.plan, session.k, session.largest,
-                          session.m_keep, session.n_aug)
-    u_hat = u / torch.sqrt(nrm2_t)
-    padded = [_pad_batch(engine, x) for x in
-              (session.a, session.basis, session.theta, u_hat)]
-    rho_t = torch.full((padded[0].shape[0],), rho, dtype=session.dtype,
-                       device=session.device)
-    result, flags, a_new, basis, theta = prog(*padded, rho_t)
-
-    # Drift monitor, leg 3: verification of the fast answer.
-    if cfg.verify and not bool(flags.ok[0]):
-        _full_resolve(engine, session, a_new[0], cause="verify")
-        return
-
-    session.a = a_new[0]
-    session.basis = basis[0]
-    session.theta = theta[0]
-    session.lam, session.vecs = result.eigenvalues[0], result.vectors[0]
-    session.drift = new_drift
-    session.updates_since_resolve += 1
-    session.fast_updates += 1
+            # Drift monitor, leg 3: verification of the fast answer.
+            verified = True
+            if cfg.verify:
+                count("host_sync")
+                verified = bool(flags.ok[0])
+            if not verified:
+                cause, a_new = "verify", a_new[0]
+            else:
+                session.a = a_new[0]
+                session.basis = basis[0]
+                session.theta = theta[0]
+                session.lam = result.eigenvalues[0]
+                session.vecs = result.vectors[0]
+                session.drift = new_drift
+                session.updates_since_resolve += 1
+                session.fast_updates += 1
+                count("session_fast_update")
+                return
+    # A re-solve runs outside the fast path's span, in its own.
+    _full_resolve(engine, session, a_new, cause=cause)

@@ -23,11 +23,21 @@ Span names:
   around each chunk of steps up to a residual check: one graph replay,
   the check included, and its wait) and ``lanczos/sync`` around each wait in the
   Lanczos reduce (``linalg.lanczos``), so the self time of
-  ``lanczos/step`` is the host's time issuing the steps.
+  ``lanczos/step`` is the host's time issuing the steps;
+* ``session/fast`` around a session update's fast path, from the update
+  norm's read to the state commit, and ``session/resolve`` around each full
+  re-solve of a session, its host verify and host reseed included
+  (``engine.session``).
 
 Counters besides ``host_sync``: ``lanczos_graph_chunk``, one a chunk of
 Lanczos steps replayed as a CUDA graph, and ``lanczos_eager_chunk``, one
-a chunk run again with a wait a step after a breakdown in it.
+a chunk run again with a wait a step after a breakdown in it;
+``session_fast_update``, one a committed fast update, ``session_resolve``,
+one a full re-solve of any cause but a session's opening, and
+``session_host_reseed``, one a window rebuilt by the host's ``eigh``.  A
+session also counts ``host_sync`` at its own waits: the update norm's read,
+the verify flag's read, each copy to the host (the host verify's and the
+Frobenius norm's).
 """
 
 from __future__ import annotations
