@@ -211,6 +211,16 @@ Phases, each of which fails the run (non-zero exit) on error:
    the step's time beside ``bound_time``, ``dominant`` and
    ``roofline_fraction`` on the H100 constants.  The phase's time is
    printed.
+19. hold the minor-determinant kernel against its plain version at the
+   main path's shapes (the topk8 and topk16 cells' Lanczos bands, a
+   session band, the windowed chain at b = 16, n = 600), float64 and
+   float32, within MINOR_DET_RTOL; time it by CUDA events and by its card
+   time in a CUDA graph, beside the plain version and its bound, the
+   dependent chain of n - 1 steps at the per-step latency of one lane;
+   then run a Krylov top-k at the topk8 and topk16 cells' shapes: every
+   ``minor_det`` stage and Lanczos residual check launches the kernel
+   (later calls' checks by graph replays), the plain loop never runs on
+   a CUDA tensor, and one call is split by stage.
 
 Every launch count is set to 0 just before each of phases 3, 4, 5, 6 (each
 run of the packed program), 7, 8, each stream of 11, each part of 12, each
@@ -306,6 +316,24 @@ KRYLOV_SI_M = 256
 #: The Householder leg beside the Krylov topk is timed at KRYLOV_N unless
 #: one call there took longer than this (s); then at n = 1024.
 DENSE_LEG_LIMIT_S = 60.0
+#: The minor-determinant kernel's launches on the main path, ``(what, b, n,
+#: k)``: the Lanczos bands of the benchmark's topk8 (b 256, m 128) and
+#: topk16 (b 8, m 256) cells, a session update's 16-wide band with its 12
+#: kept pairs, and the windowed chain on the smoke's stack.
+MINOR_DET_SHAPES = (("topk8 band", 256, 128, 8), ("topk16 band", 8, 256, 16),
+                    ("session band", 1, 16, 12), ("windowed", B, N, K))
+#: Kernel against plain version on the card, relative, with the dtype's
+#: smallest normal number as the absolute floor: the same steps, log, exp
+#: and IEEE divide; only the normalisation's row sum is added in another
+#: order (a few units in the last place).
+MINOR_DET_RTOL = {"float64": 1e-12, "float32": 1e-5}
+#: One lane at these band lengths: the slope of its time is the latency of
+#: one step of the dependent chain, which bounds the kernel.
+MINOR_DET_CHAIN_N = (1024, 4096)
+#: The top-k calls whose minor-determinant launches are counted and whose
+#: stages are split: the benchmark's topk8 and topk16 shapes ``(b, n, k,
+#: m)`` on the Krylov chain.
+MINOR_DET_TOPK = ((256, 600, 8, 128), (8, 4096, 16, 256))
 #: The server phase: a mixed stream of make_eei_stream(*SERVE_MIXED,
 #: mixed=True) (n in {96, 192, 288}, k in 1..8) through EeiServer at
 #: max_batch SERVE_BATCH, caller-driven and with a linger of SERVE_LINGER_MS
@@ -580,6 +608,7 @@ def main() -> int:
                               for part, counts in mesh.items()}
         r["examples_launches"] = {name: counts[kind]
                                   for name, counts in examples.items()}
+    records += _phase_minor_det(torch, dev)
     print(f"[timing] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
@@ -5746,6 +5775,121 @@ def _mesh_train_ref(torch, dev):
     print(f"[mesh] gemma2-2b unsharded reference losses {losses}, step ms "
           f"{walls}")
     return dict(losses=losses, walls=walls)
+
+
+def _minor_det_case(torch, dev, b, n, k, dtype):
+    """Seeded bands ``d (b, n)``, ``e (b, n-1)`` and their top ``k``
+    eigenvalues as the shifts, as the top-k chain's ``minor_det`` takes
+    them."""
+    import numpy as np
+
+    from repro_torch.kernels.sturm import ops as st_ops
+
+    rng = np.random.default_rng(SEED + n)
+    d = torch.as_tensor(rng.standard_normal((b, n)), dtype=dtype, device=dev)
+    e = torch.as_tensor(rng.standard_normal((b, n - 1)), dtype=dtype,
+                        device=dev)
+    return d, e, st_ops.sturm_eigenvalues(d, e, window=(k, True))
+
+
+def _phase_minor_det(torch, dev):
+    """19. The minor-determinant kernel against its plain version, timed,
+    and the top-k paths through it; returns its timing records."""
+    from repro_torch import SolverEngine, SolverPlan, tracing
+    from repro_torch.core import identity
+    from repro_torch.engine.engine import ProgramSpec
+    from repro_torch.kernels.minor_det import kernel as md
+
+    t_phase = time.perf_counter()
+    records = []
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[1]
+        chain = []
+        for n in MINOR_DET_CHAIN_N:
+            d, e, x = _minor_det_case(torch, dev, 1, n, 1, dtype)
+            chain.append(_kernel_device_ms(
+                torch, lambda: md.minor_det(d, e, x)))
+        step_ms = (chain[1] - chain[0]) / (MINOR_DET_CHAIN_N[1]
+                                           - MINOR_DET_CHAIN_N[0])
+        print(f"[minor_det] {dname}: one lane {chain[0]:.4f} ms at n = "
+              f"{MINOR_DET_CHAIN_N[0]}, {chain[1]:.4f} ms at n = "
+              f"{MINOR_DET_CHAIN_N[1]}: {step_ms * 1e6:.1f} ns a step")
+        for what, b, n, k in MINOR_DET_SHAPES:
+            d, e, x = _minor_det_case(torch, dev, b, n, k, dtype)
+            before = md.minor_det.launches
+            got = md.minor_det(d, e, x)
+            check(md.minor_det.launches == before + 1,
+                  f"minor_det {what}: {md.minor_det.launches - before} "
+                  f"launches for one call")
+            want, _ = _plain_ms(torch, lambda: md.minor_det_plain(d, e, x))
+            _, plain_ms = _plain_ms(torch,
+                                    lambda: md.minor_det_plain(d, e, x))
+            err = _max_err(torch, got, want, MINOR_DET_RTOL[dname],
+                           torch.finfo(dtype).tiny,
+                           f"minor_det {what} {dname}")
+            rel = float(((got.double() - want.double()).abs()
+                         / want.double().abs().clamp(
+                             min=torch.finfo(dtype).tiny)).max())
+            records.append(dict(
+                name=f"minor_det[{what} {b}x{n}, k={k}, {dname}]",
+                ms=_events_ms(torch, lambda: md.minor_det(d, e, x), 3, 50),
+                device_ms=_kernel_device_ms(
+                    torch, lambda: md.minor_det(d, e, x)),
+                bound_ms=(n - 1) * step_ms,
+                bound_by=f"the chain of {n - 1} steps at one lane's "
+                         f"{step_ms * 1e6:.1f} ns",
+                plain_ms=plain_ms, library_ms=None, max_err=err,
+                max_rel_err=rel))
+            _print_record(records[-1])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for b, n, k, m in MINOR_DET_TOPK:
+        x = torch.randn((b, n, n), dtype=torch.float64, device=dev,
+                        generator=gen)
+        a = x + x.transpose(-1, -2)
+        del x
+        plan = SolverPlan(method="eei_krylov", krylov_m=m)
+        engine = SolverEngine(plan)
+        devices = []
+        plain = identity.tridiag_minor_logdets
+
+        def recording(d, e, x):
+            devices.append(d.device.type)
+            return plain(d, e, x)
+
+        identity.tridiag_minor_logdets = recording
+        try:
+            for call in range(2):  # the first captures the check's graph
+                tracing.reset()
+                before = md.minor_det.launches
+                top = engine.topk(a, k)
+                torch.cuda.synchronize()
+                counts = tracing.counts()
+                launched = md.minor_det.launches - before
+                chunks = counts.get("lanczos_graph_chunk", 0)
+                check(launched == counts.get("minor_det_kernel", 0) >= 2
+                      and "minor_det_plain" not in counts,
+                      f"minor_det top-k {b}x{n}: {launched} launches, "
+                      f"counters {counts}")
+                check(call == 0 or chunks >= 1,
+                      f"minor_det top-k {b}x{n}: no graph replay {counts}")
+        finally:
+            identity.tridiag_minor_logdets = plain
+        check(devices.count("cuda") == 0,
+              f"minor_det top-k {b}x{n}: the plain loop ran on the card "
+              f"{devices.count('cuda')} times")
+        lam = torch.linalg.eigvalsh(a)
+        span = float((lam[:, -1] - lam[:, 0]).max())
+        err = float((top.eigenvalues - lam[:, -k:]).abs().max()) / span
+        check(err < KRYLOV_TOL, f"minor_det top-k {b}x{n}: eigenvalue error "
+              f"{err:.3e} of the window's span")
+        split = _stage_split(torch, plan, ProgramSpec("topk", k, True), a)
+        print(f"[minor_det] Krylov top-k b={b} n={n} k={k} m={m}: "
+              f"{launched} launches a call ({chunks} by graph replays), "
+              f"eigenvalue error {err:.3e}; stages (ms) {split}")
+        del a
+    torch.cuda.empty_cache()
+    print(f"[minor_det] phase took {time.perf_counter() - t_phase:.1f} s")
+    return records
 
 
 def _phase_examples_dryrun(torch, dev):

@@ -10,17 +10,19 @@ compositions.
                 k-window and all stacked minor bands, one launch each), the
                 segmented Sturm bisection (the k-windows of every segment of
                 packed rows, and warm per-lane brackets in the session
-                update) and the prod-diff numerator table (whole, or only
-                the k selected rows).  On CPU tensors
+                update), the prod-diff numerator table (whole, or only
+                the k selected rows) and the minor-determinant components
+                (one launch for the window of every matrix).  On CPU tensors
                 the kernel wrappers run their plain versions.
     sharded     the cuda stages split over the batch axis of a device mesh
                 (``core.distributed``).
 
 The Householder reduce, the Lanczos reduce, the dense ``eigvalsh`` (in
 float64 for a float32 stack on the card, see :func:`_card_float64`), the
-LU sign solves, the minor-determinant recurrence and the sign recurrence
-are plain PyTorch on every backend, as ``repro`` leaves them to ``jnp``,
-XLA and LAPACK.
+LU sign solves and the sign recurrence are plain PyTorch on every backend,
+as ``repro`` leaves them to ``jnp``, XLA and LAPACK.  So is the
+minor-determinant recurrence on ``reference`` and ``torch``; ``cuda`` (and
+``sharded``, which runs ``cuda``'s stages) computes it with a kernel.
 
 Compositions registered here:
 
@@ -106,7 +108,9 @@ def _make_krylov_stages(plan: SolverPlan) -> dict:
     """The two Krylov reduce stages, closing over the plan's band size.
     Every backend shares them: the Lanczos loop is dense matvecs and
     projections, and its residual check bisects through
-    ``kernels.sturm.ops`` (kernel 1 on a CUDA tensor)."""
+    ``kernels.sturm.ops`` (kernel 1 on a CUDA tensor) and takes the
+    magnitudes through ``kernels.minor_det.ops`` (its kernel on a CUDA
+    tensor)."""
     from repro_torch.linalg import lanczos
 
     m = plan.krylov_m
@@ -124,14 +128,12 @@ def _make_krylov_stages(plan: SolverPlan) -> dict:
 
 
 def _common_stages(plan: SolverPlan) -> dict:
-    """Stages every backend shares: the reduces, the minor determinants, the
-    sign recurrence, the dense spectra of the eigh and dense chains, and the
-    batched LU signs."""
+    """Stages every backend shares: the reduces, the sign recurrence, the
+    dense spectra of the eigh and dense chains, and the batched LU signs."""
     return {
         "tridiagonalize": householder.tridiagonalize,
         "dense_eigenvalues": _dense_eigenvalues,
         "dense_minor_spectra": _dense_minor_spectra,
-        "minor_det_components": identity.tridiag_windowed_magnitudes,
         "tridiag_signs": tridiagonal_signs,
         "dense_signs": inverse_iteration_signs_batched,
         "verify_topk": verify_topk,
@@ -176,6 +178,7 @@ def _make_plain(name: str, reduce: str, plan: SolverPlan) -> StageLibrary:
 
     stages = {
         **_common_stages(plan),
+        "minor_det_components": identity.tridiag_windowed_magnitudes,
         "tridiag_eigenvalues": tridiag_eigenvalues,
         "tridiag_eigenvalues_windowed": tridiag_eigenvalues_windowed,
         "tridiag_eigenvalues_bracketed": tridiag_eigenvalues_bracketed,
@@ -198,6 +201,7 @@ def make_torch_backend(plan: SolverPlan) -> StageLibrary:
 
 
 def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
+    from repro_torch.kernels.minor_det import ops as md_ops
     from repro_torch.kernels.prod_diff import ops as pd_ops
     from repro_torch.kernels.sturm import ops as sturm_ops
 
@@ -232,6 +236,7 @@ def make_cuda_backend(plan: SolverPlan) -> StageLibrary:
         "tridiag_minor_spectra": tridiag_minor_spectra,
         "magnitudes": pd_ops.eei_magnitudes_batched,
         "magnitudes_windowed": pd_ops.eei_magnitudes_windowed,
+        "minor_det_components": md_ops.tridiag_windowed_magnitudes,
     })
 
 

@@ -22,7 +22,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sturm.cu", "sturm_segmented.cu", "prod_diff.cu", "runtime.cu")
+SOURCES = ("sturm.cu", "sturm_segmented.cu", "prod_diff.cu", "minor_det.cu",
+           "runtime.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = (
@@ -43,6 +44,8 @@ SIGNATURES = {
     "logabs_sum_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "logabs_sum_masked_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "logabs_sum_masked_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "minor_det_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "minor_det_f64": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,9 @@ stages unchanged.  As in ``repro``:
 * a windowed Ritz-residual stop every ``check_every`` steps: the ``k``
   windowed Ritz values of the guard-masked band are bisected (through
   ``kernels.sturm.ops.sturm_eigenvalues(..., window=)``: kernel 1 on a CUDA
-  tensor, its plain version, bitwise the same, on a CPU one) and the bound
+  tensor, its plain version, bitwise the same, on a CPU one), their
+  eigenvector magnitudes come from ``kernels.minor_det.ops`` (one launch
+  on a CUDA tensor, the plain loop on a CPU one), and the bound
   ``beta_j |s_j[last]|`` is held to ``rtol`` of the band's scale;
 * a breakdown (``beta_j ~ 0``) restarts in a fresh direction orthogonal to
   the basis, through an exactly-zero band junction;
@@ -49,7 +51,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import identity
 from repro_torch.tracing import count, span
 
 #: Krylov band sizing for a k-window: ``m = min(n, max(FACTOR * k, MIN))``
@@ -195,13 +196,14 @@ def _ritz_resid(d, e, j1, beta, window, floor):
     """Relative Ritz residual bound ``beta_j |s_i[j-1]| / scale`` of the k
     windowed pairs of the current masked bands, ``(b, k)``, after ``j1``
     steps (an int, or a one-element index tensor)."""
+    from repro_torch.kernels.minor_det import ops as md_ops
     from repro_torch.kernels.sturm import ops as sturm_ops
 
     k, largest = window
     m = d.shape[-1]
     d_m, e_m = _mask_band(d, e, j1, m, largest)
     theta = sturm_ops.sturm_eigenvalues(d_m, e_m, window=(k, largest))
-    mags = identity.tridiag_windowed_magnitudes(d_m, e_m, theta)
+    mags = md_ops.tridiag_windowed_magnitudes(d_m, e_m, theta)
     mags = mags.transpose(-1, -2)  # (b, m, k): row j1 - 1 is the last step
     s_last = torch.sqrt(torch.clamp(_row(mags, j1 - 1), min=0.0))
     lo, hi = _band_bounds(d_m, e_m, torch.arange(m, device=d.device) < j1)
@@ -251,14 +253,16 @@ class _ChunkGraphs:
         returns its outputs, which the next replay overwrites.  The first
         chunk of a key runs eagerly on a side stream (the warm-up a capture
         needs) and is then captured."""
+        from repro_torch.kernels.minor_det import kernel as md_kernel
         from repro_torch.kernels.sturm import kernel as sturm_kernel
 
         self.t.fill_(j0)
         if key in self.graphs:
-            graph, out, launches = self.graphs[key]
+            graph, out, (sturm_launches, md_launches) = self.graphs[key]
             count("lanczos_graph_chunk")
             graph.replay()
-            sturm_kernel.replayed(launches)
+            sturm_kernel.replayed(sturm_launches)
+            md_kernel.replayed(md_launches)
             return out
         current = torch.cuda.current_stream(self.t.device)
         self.stream.wait_stream(current)
@@ -269,12 +273,14 @@ class _ChunkGraphs:
             if x is not None:
                 x.record_stream(current)
         graph = torch.cuda.CUDAGraph()
-        before = sturm_kernel.captured()
+        before = (sturm_kernel.captured(), md_kernel.captured())
         with torch.cuda.graph(graph, stream=self.stream,
                               capture_error_mode="thread_local"):
             captured = chunk(self.t)
-        # The check's kernel-1 calls, which each replay launches.
-        launches = sturm_kernel.captured() - before
+        # The check's kernel-1 and minor-determinant calls, which each
+        # replay launches.
+        launches = (sturm_kernel.captured() - before[0],
+                    md_kernel.captured() - before[1])
         self.graphs[key] = (graph, captured, launches)
         return out
 

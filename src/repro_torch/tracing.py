@@ -37,7 +37,10 @@ one a full re-solve of any cause but a session's opening, and
 ``session_host_reseed``, one a window rebuilt by the host's ``eigh``.  A
 session also counts ``host_sync`` at its own waits: the update norm's read,
 the verify flag's read, each copy to the host (the host verify's and the
-Frobenius norm's).
+Frobenius norm's).  ``minor_det_kernel``, one a launch of the
+minor-determinant kernel (a CUDA graph's replayed ones included), and
+``minor_det_plain``, one a call of its plain version through its wrapper
+(``kernels.minor_det.kernel``).
 """
 
 from __future__ import annotations

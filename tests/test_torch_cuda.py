@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from repro_torch import Rank1Update, SolverEngine, SolverPlan, tracing
-from repro_torch.core import minors
+from repro_torch.core import identity, minors
+from repro_torch.kernels.minor_det import kernel as md_kernel
+from repro_torch.kernels.minor_det import ops as md_ops
 from repro_torch.kernels.prod_diff import kernel as pd_kernel
 from repro_torch.kernels.prod_diff import ops as pd_ops
 from repro_torch.kernels.sturm import kernel as st_kernel
@@ -32,6 +34,12 @@ pytestmark = pytest.mark.cuda
 #: Kernel against plain version, from tests/test_kernels.py (rtol = atol).
 TOL = {torch.float64: {"sturm": 1e-10, "prod_diff": 1e-10},
        torch.float32: {"sturm": 2e-5, "prod_diff": 1e-4}}
+#: The minor-determinant kernel against its plain version on the card,
+#: relative, with the dtype's smallest normal number as the absolute floor:
+#: both take the same steps with the same log, exp and IEEE divide, and
+#: only the row sum of the normalisation is added in another order (a few
+#: units in the last place; a quotient below the floor keeps fewer bits).
+MINOR_DET_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 DTYPES = (torch.float64, torch.float32)
 
 
@@ -252,6 +260,114 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
                                rtol=1e-4, atol=1e-7)
 
 
+#: ``(b, n, k)`` of the main path's minor-determinant launches: topk8 b256
+#: (m = 128), topk16 b8 (m = 256), the session's 16-wide band (12 kept
+#: pairs), the dense windowed chain at n = 600 (b 16, k 8) and n = 4096 (a
+#: band over 48 KB of shared memory in float64), the packed chain (16
+#: segments of k = 8 a row: two blocks a row), and n = 1, 2.
+MINOR_DET_SHAPES = [(256, 128, 8), (8, 256, 16), (1, 16, 12), (16, 600, 8),
+                    (2, 4096, 16), (8, 512, 128), (3, 1, 2), (3, 2, 3)]
+
+
+def _minor_det_inputs(seed, b, n, k, dtype, device, zeros=False):
+    """Bands and shifts at the top-k eigenvalues of each band (random
+    shifts where k > n).  With ``zeros`` every fifth ``e`` is 0 and the
+    first shift is ``d_0``, so the ``pivmin`` clamp fires."""
+    d, e = _bands(seed, b, n, dtype, device)
+    if zeros:
+        e[:, ::5] = 0.0
+    if k <= n:
+        x = st_ops.sturm_eigenvalues(d, e, window=(k, True))
+    else:
+        x = torch.as_tensor(np.random.default_rng(seed).uniform(
+            -2, 2, (b, k)), dtype=dtype, device=device)
+    if zeros:
+        x[:, 0] = d[:, 0]
+    return d, e, x.contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", MINOR_DET_SHAPES,
+                         ids=["x".join(map(str, s)) for s in MINOR_DET_SHAPES])
+def test_minor_det_kernel_matches_plain(cuda_device, shape, dtype):
+    d, e, x = _minor_det_inputs(sum(shape), *shape, dtype, cuda_device,
+                                zeros=shape[1] in (16, 600))
+    before = md_kernel.minor_det.launches
+    got = md_kernel.minor_det(d, e, x)
+    assert md_kernel.minor_det.launches == before + 1
+    want = md_kernel.minor_det_plain(d, e, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=MINOR_DET_RTOL[dtype],
+                               atol=torch.finfo(dtype).tiny)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_minor_det_kernel_in_a_cuda_graph_is_bitwise_eager(cuda_device,
+                                                           dtype):
+    """A launch recorded into a CUDA graph gives the eager launch's bits at
+    each replay, and is counted by its replays, not at capture."""
+    d, e, x = _minor_det_inputs(7, 64, 128, 8, dtype, cuda_device)
+    eager = md_kernel.minor_det(d, e, x)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        md_kernel.minor_det(d, e, x)  # the warm-up a capture needs
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    launches, captured = md_kernel.minor_det.launches, md_kernel.captured()
+    with torch.cuda.graph(graph):
+        out = md_kernel.minor_det(d, e, x)
+    assert md_kernel.captured() == captured + 1
+    assert md_kernel.minor_det.launches == launches
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        md_kernel.replayed(1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert md_kernel.minor_det.launches == launches + 2
+
+
+def test_every_minor_det_on_the_card_runs_the_kernel(cuda_device):
+    """A Krylov top-k and a windowed top-k on the card: every ``minor_det``
+    stage and every Lanczos residual check launches the kernel (the checks
+    of later calls by graph replays), and the plain loop never runs on a
+    CUDA tensor."""
+    from repro_torch.engine import engine as engine_mod
+
+    a = _sym(np.random.default_rng(30), 4, 600, torch.float64, cuda_device)
+    devices = []
+    plain = identity.tridiag_minor_logdets
+
+    def recording(d, e, x):
+        devices.append(d.device.type)
+        return plain(d, e, x)
+
+    engine_mod.program.cache_clear()
+    identity.tridiag_minor_logdets = recording
+    try:
+        for plan in (SolverPlan(method="eei_krylov", krylov_m=128),
+                     SolverPlan(method="eei_tridiag", spectrum="windowed")):
+            engine = SolverEngine(plan)
+            for _ in range(2):
+                tracing.reset()
+                before = md_kernel.minor_det.launches
+                engine.topk(a, 8)
+                torch.cuda.synchronize()
+                counts = tracing.counts()
+                checks = (counts.get("lanczos_graph_chunk", 0)
+                          + counts.get("lanczos_eager_chunk", 0))
+                if plan.method == "eei_krylov":
+                    assert checks >= 1, counts
+                launched = md_kernel.minor_det.launches - before
+                assert launched == counts.get("minor_det_kernel") >= 1
+                assert "minor_det_plain" not in counts, counts
+    finally:
+        identity.tridiag_minor_logdets = plain
+    assert "cuda" not in devices, devices
+
+
 def test_wrappers_raise_on_a_refused_launch(cuda_device):
     """A band too long for one block's shared memory is refused in Python,
     before any launch: there is no fallback to the plain version."""
@@ -261,6 +377,11 @@ def test_wrappers_raise_on_a_refused_launch(cuda_device):
     bounds = torch.zeros((1, 3), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         st_kernel.sturm_bisect(d, e, bounds, target_base=0, m=1, n_iter=1)
+    x = torch.zeros((1, 1), dtype=torch.float64, device=cuda_device)
+    before = md_kernel.minor_det.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        md_ops.tridiag_windowed_magnitudes(d, e, x)
+    assert md_kernel.minor_det.launches == before
 
 
 def _degenerate_bands(dtype, device):
@@ -1219,9 +1340,11 @@ def test_lanczos_graph_chunks_are_bitwise_the_loop_with_waits(cuda_device,
             assert counts.get("lanczos_eager_chunk", 0) == 0, counts
             assert counts.get("lanczos_graph_chunk", 0) >= 1, counts
     if case == "float64":
-        # Every chunk of a later call is one replay, one wait at its check.
+        # Every chunk of a later call is one replay, one wait at its check,
+        # and one minor-determinant launch in its check.
         assert counts == {"host_sync": 1 + m // 32,
-                          "lanczos_graph_chunk": m // 32}
+                          "lanczos_graph_chunk": m // 32,
+                          "minor_det_kernel": m // 32}
     if case == "staggered":
         assert len(set(got[3].tolist())) == 3, got[3]
 

@@ -105,8 +105,11 @@ def test_lanczos_steps_and_host_syncs(profiled):
     assert steps.tolist() == [m, m]  # float64 runs every step here
     # The start vector's copy, a breakdown test a step, the convergence
     # test at each check; the matrices leave after the loop with no wait.
-    want = 1 + m + _check_steps(check_every, k, m)
-    assert tracing.counts() == {"host_sync": want}
+    # Each check takes its magnitudes through the minor-determinant op,
+    # whose plain version runs on the CPU.
+    checks = _check_steps(check_every, k, m)
+    want = 1 + m + checks
+    assert tracing.counts() == {"host_sync": want, "minor_det_plain": checks}
     spans = tracing.spans()
     if not profiled:
         assert spans == {}
@@ -148,8 +151,9 @@ def test_a_retire_is_one_counted_wait():
     left = {s for s, done in zip(steps, (resid <= rtol).all(dim=-1).tolist())
             if done}
     last = max(steps)
-    want = 1 + last + _check_steps(check_every, k, last) + len(left)
-    assert tracing.counts() == {"host_sync": want}
+    checks = _check_steps(check_every, k, last)
+    want = 1 + last + checks + len(left)
+    assert tracing.counts() == {"host_sync": want, "minor_det_plain": checks}
 
 
 @pytest.mark.parametrize("case", [0, 1], ids=["solve", "topk"])
